@@ -3,12 +3,18 @@ mfrec_tpu_torch — the PyTorch/CUDA port of ``mfrec_tpu``.
 
 The port runs beside the JAX package, which stays the reference it is
 tested against.  It imports torch and numpy, never jax or mfrec_tpu.
-What is ported so far is the serving slice: the ratings store, the
-checkpoint format, ``GDRecommender``'s predictors and batched top-N
-retrieval (the hand-written CUDA kernel K3 on a GPU, in
-``csrc/topn.cu``), similarity search and the HTTP server.  Models take
-``device='cuda'`` (default) or ``device='cpu'``.  Training is not ported
-yet.
+What is ported so far:
+
+* the serving slice: the ratings store, the checkpoint format,
+  ``GDRecommender``'s predictors and batched top-N retrieval (the
+  hand-written CUDA kernel K3 on a GPU, in ``csrc/topn.cu``), similarity
+  search and the HTTP server;
+* the training slice: ``GDRecommender.train()`` /
+  ``feature_training_bias()`` on the single-device sorted-window
+  alternating engine, whose batch step is the hand-written CUDA kernel
+  K1 on a GPU (``csrc/half_pass.cu``).
+
+Models take ``device='cuda'`` (default) or ``device='cpu'``.
 '''
 
 __version__ = '0.1.0'

@@ -134,6 +134,12 @@ class Ratings:
         # sorted-pass layouts) keyed on ``version`` so repeated train()
         # calls on unchanged data skip the O(nnz) host re-sort.
         self._version = 0
+        # Identity of this store for those caches: a fresh store (e.g.
+        # from load_state) restarts ``version`` at 0, so the version alone
+        # could match a cache built from another store.  An object, not
+        # id(self): a cache that holds the token keeps it from being
+        # reused, where an id() can be handed to a later object.
+        self.token = object()
 
     @property
     def version(self):

@@ -30,17 +30,22 @@ def load_jax_state(path, device='cuda'):
 
 
 def from_numpy(P, Q, users_bias, items_bias, overall_bias, ratings,
-               labels=None, device='cuda'):
+               labels=None, device='cuda', parameters=None):
     '''A ``GDRecommender`` on ``device`` from arrays: ``P`` [users, k],
     ``Q`` [items, k], the biases (None for none), ``ratings`` as a
-    ``(users, items, values)`` triple, and optional ``labels``
-    ``{'users': [...], 'items': [...]}``.'''
+    ``(users, items, values)`` triple, optional ``labels``
+    ``{'users': [...], 'items': [...]}``, and optional ``parameters`` in
+    ``PARAMETERS_INDEX`` names (a JAX model's settings, so that the port
+    model trains on as the JAX model would).'''
     P = np.ascontiguousarray(P, np.float32)
     Q = np.ascontiguousarray(Q, np.float32)
     if P.ndim != 2 or Q.ndim != 2 or P.shape[1] != Q.shape[1]:
         raise ValueError('P [users, k] and Q [items, k] must share k')
-    model = GDRecommender(P.shape[0], Q.shape[0],
-                          {'nbr_features': P.shape[1]}, device=device)
+    params = dict(parameters or {})
+    if params.setdefault('nbr_features', P.shape[1]) != P.shape[1]:
+        raise ValueError('parameters say nbr_features=%r, the factors have '
+                         'k=%d' % (params['nbr_features'], P.shape[1]))
+    model = GDRecommender(P.shape[0], Q.shape[0], params, device=device)
     model.P, model.Q = P, Q
     if users_bias is not None:
         model.users_bias = np.asarray(users_bias, np.float32)

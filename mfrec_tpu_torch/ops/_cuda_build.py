@@ -56,6 +56,40 @@ def build_log(name):
     return log.read_text() if log.exists() else None
 
 
+def build(names):
+    '''Compile every ``csrc/<name>.cu`` of ``names`` that has no current
+    library yet, one ``nvcc`` each, all started together.  Raises with
+    the compiler's output if any fails.'''
+    with _lock:
+        _build_locked(names)
+
+
+def _build_locked(names):
+    jobs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(so.name + '.tmp%d' % os.getpid())
+        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC / (name + '.cu'))]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, cmd, proc))
+    failed = []
+    for name, so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append('building %s failed (rc %d):\n%s\n%s'
+                          % (name, proc.returncode, ' '.join(cmd), out))
+            continue
+        so.with_suffix('.log').write_text(out)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+
+
 def load(name, declare):
     '''The loaded ``ctypes.CDLL`` of ``csrc/<name>.cu``, built if needed;
     ``declare(lib)`` sets its functions' argtypes/restype once.'''
@@ -63,20 +97,8 @@ def load(name, declare):
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        so = library_path(name)
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(so.name + '.tmp%d' % os.getpid())
-            cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-                   str(CSRC / (name + '.cu'))]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError('building %s failed (rc %d):\n%s\n%s'
-                                   % (name, res.returncode, ' '.join(cmd),
-                                      res.stdout + res.stderr))
-            so.with_suffix('.log').write_text(res.stdout + res.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        _build_locked([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         declare(lib)
         _libs[name] = lib
         return lib

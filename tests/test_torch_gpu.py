@@ -1,13 +1,17 @@
-'''K3 on a CUDA device: the kernel against its plain twin, and a CUDA
-model and server against the same model on the CPU.  Every case is
-marked ``gpu`` and skips without a card.  This file imports no JAX, so
-on a GPU host without it run it alone, without the suite's conftest:
+'''K3 and K1 on a CUDA device: each kernel against its plain version, and
+a CUDA model against the same model on the CPU.  Every case is marked
+``gpu`` and skips without a card.  This file imports no JAX, so on a GPU
+host without it run it alone, without the suite's conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Tolerances: exact mode scores within 1e-4 (f32 sums in another order),
-ids equal unless the twin's neighbouring scores lie within 1e-5; fast
-mode within one quantization step (rtol 2^-10, atol 1e-5).'''
+Tolerances: K3 exact mode scores within 1e-4 (f32 sums in another
+order), ids equal unless the twin's neighbouring scores lie within 1e-5;
+fast mode within one quantization step (rtol 2^-10, atol 1e-5).  K1:
+the bf16 tolerances of tests/test_pallas_half_pass.py (window atol
+5e-3, rtol 5e-2; SSE 1e-3 relative): kernel and plain version round to
+bf16 at the same places, but an f32 ulp from FMA contraction or
+summation order can flip one bf16 rounding of the window read.'''
 import numpy as np
 import pytest
 import torch
@@ -88,3 +92,139 @@ def test_cuda_model_matches_cpu_model(cuda, fast):
         ok, err, swaps = topn_agreement(*got, *ref, 10,
                                         **(FAST if fast else EXACT))
         assert ok, (pred, err, swaps)
+
+
+K1_TOL = dict(atol=5e-3, rtol=5e-2)
+
+
+def _k1_batches(nb, B, W, n_upd, n_fix, seed):
+    rng = np.random.default_rng(seed)
+    lo = np.sort(rng.integers(0, n_upd - W, nb)).astype(np.int32)
+    kl = np.sort(rng.integers(0, W, (nb, B)), axis=1).astype(np.int32)
+    m = (rng.random((nb, B)) > 0.1).astype(np.float32)
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, n_fix, (nb, B)).astype(np.int32)
+    return fix, r, m, kl, lo
+
+
+@pytest.mark.parametrize('k,opts', [
+    (66, {}), (66, {'link': 'logistic', 'clamp_pred': False}),
+    (66, {'bias_none': True}), (66, {'row_mean': False}),
+    (66, {'clamp_pred': False}), (130, {}), (10, {'f32_fix': True})])
+def test_half_pass_kernel_matches_plain(cuda, k, opts):
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    opts = dict(opts)
+    f32_fix = opts.pop('f32_fix', False)
+    nb, B, W, n_upd, n_fix, T = 5, 2048, 64, 400, 300, 16
+    batches = _k1_batches(nb, B, W, n_upd, n_fix, seed=k)
+    rng = np.random.default_rng(1)
+    F0 = torch.from_numpy(
+        rng.normal(0, 0.1, (n_upd, k)).astype(np.float32)).to(cuda)
+    Ffix = torch.from_numpy(
+        rng.normal(0, 0.1, (n_fix, k)).astype(np.float32)).to(cuda)
+    if not f32_fix:
+        Ffix = Ffix.to(torch.bfloat16)
+    lrv = torch.full((k,), 0.01 if opts.get('row_mean') is False else 0.1,
+                     device=cuda)
+    lrv[-1] = 0.0
+    regv = torch.full((k,), 0.02, device=cuda)
+    seg = hk.build_segments(*batches, W, cuda)
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in batches)
+    mu = 0.0 if opts.get('link') == 'logistic' else 3.4
+    Fk, Fp = F0.clone(), F0.clone()
+    before = hk.half_pass.launches
+    sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
+    torch.cuda.synchronize()
+    assert hk.half_pass.launches == before + 1
+    sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
+    torch.testing.assert_close(Fk, Fp, **K1_TOL)
+    assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert torch.equal(Fk[:, -1], F0[:, -1])            # frozen column
+    assert float((Fk - F0).abs().max()) > 0
+
+
+def test_half_pass_kernel_long_rows(cuda):
+    '''Rows of at least WIDE_ROW ratings run in 32-warp blocks on a second
+    stream beside the 8-warp blocks: both against the plain version.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    nb, B, W, k, T = 3, 8192, 16, 66, 8
+    rng = np.random.default_rng(9)
+    kl = np.sort(rng.integers(0, W, (nb, B)), axis=1).astype(np.int32)
+    kl[:, : B // 2] = 0                      # one row of 3 x 4096 + ratings
+    lo = np.zeros(nb, np.int32)
+    m = np.ones((nb, B), np.float32)
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, 500, (nb, B)).astype(np.int32)
+    seg = hk.build_segments(fix, r, m, kl, lo, W, cuda)
+    assert seg.n_wide == 1 and seg.longest >= 3 * B // 2
+    F0 = torch.from_numpy(
+        rng.normal(0, 0.1, (W, k)).astype(np.float32)).to(cuda)
+    Ffix = torch.from_numpy(rng.normal(0, 0.1, (500, k)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    lrv = torch.full((k,), 0.1, device=cuda)
+    regv = torch.full((k,), 0.02, device=cuda)
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in (fix, r, m, kl, lo))
+    Fk, Fp = F0.clone(), F0.clone()
+    sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, 3.4, T, segments=seg)
+    sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, 3.4, T)
+    torch.testing.assert_close(Fk, Fp, **K1_TOL)
+    assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+
+
+def test_cuda_epoch_matches_cpu_epoch(cuda):
+    '''The epoch with use_kernel=True on CUDA tensors (K1) against the
+    same epoch on CPU tensors (K1's plain version).'''
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    u, i, v = synthetic_ratings(500, 300, 20000, rank=4, seed=4)
+    keep = np.unique(u.astype(np.int64) * 300 + i, return_index=True)[1]
+    u, i, v = u[keep], i[keep], v[keep]
+    W, k = 64, 18
+    lay = {a: sgd_mf.sorted_pass_layout(u, i, v, 4096, axis=a,
+                                        max_window=W)
+           for a in ('user', 'item')}
+    rng = np.random.default_rng(0)
+    Pa, Qa = sgd_mf.augment_factors(
+        rng.normal(0, 0.1, (500 + W, k - 2)).astype(np.float32),
+        rng.normal(0, 0.1, (300 + W, k - 2)).astype(np.float32),
+        np.zeros(500 + W, np.float32), np.zeros(300 + W, np.float32))
+    ep = sgd_mf.make_alternating_epoch(W, W, 0.15, 0.02, inner_steps=32,
+                                       use_kernel=True)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        pl_ = sgd_mf.PassLayout(lay['user'], 'user', dev,
+                                segments=dev == 'cuda')
+        ql_ = sgd_mf.PassLayout(lay['item'], 'item', dev,
+                                segments=dev == 'cuda')
+        # copies: the epoch updates the factors in place
+        P = torch.from_numpy(Pa.copy()).to(dev)
+        Q = torch.from_numpy(Qa.copy()).to(dev)
+        before = hk.half_pass.launches
+        for _ in range(2):
+            P, Q, rmse = ep(P, Q, float(v.mean()), pl_, ql_)
+        assert hk.half_pass.launches == before + (4 if dev == 'cuda' else 0)
+        out[dev] = (P.cpu(), Q.cpu(), float(rmse))
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], **K1_TOL)
+    torch.testing.assert_close(out['cuda'][1], out['cpu'][1], **K1_TOL)
+    assert out['cuda'][2] == pytest.approx(out['cpu'][2], rel=1e-3)
+
+
+def test_cuda_model_trains_through_k1(cuda):
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    u, i, v = synthetic_ratings(800, 400, 30000, rank=4, seed=5)
+    m = GDRecommender(800, 400, {'nbr_features': 16, 'min_epochs': 3,
+                                 'max_epochs': 3, 'inner_steps': 32,
+                                 'feature_init': 0.05}, device='cuda')
+    m.set_ratings(u, i, v)
+    before = hk.half_pass.launches
+    m.train(handle_bias=True)
+    assert hk.half_pass.launches == before + 6
+    h = m.get_rmse_history()
+    assert np.isfinite(h).all() and h[-1] < h[0]
+    assert m.P.shape == (800, 16) and isinstance(m.P, np.ndarray)
+    idx, _ = m.recommend_batch(np.arange(8), 5)
+    assert idx.shape == (8, 5)

@@ -17,6 +17,9 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.data.movielens', 'mfrec_tpu_torch.utils.math_',
            'mfrec_tpu_torch.engine.checkpoint', 'mfrec_tpu_torch.ops.topk',
            'mfrec_tpu_torch.ops.topn_kernel',
+           'mfrec_tpu_torch.ops.half_pass_kernel',
+           'mfrec_tpu_torch.ops.sgd_mf', 'mfrec_tpu_torch.engine.trainer',
+           'mfrec_tpu_torch.data.ml100k_like',
            'mfrec_tpu_torch.ops._cuda_build',
            'mfrec_tpu_torch.ops.similarity', 'mfrec_tpu_torch.models.base',
            'mfrec_tpu_torch.models.mf', 'mfrec_tpu_torch.models.gd',
