@@ -4,6 +4,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py               # every phase, one card
     python3 chip_smoke.py --phases 12   # toolchain + kernel checks only
+    python3 chip_smoke.py --phases 125  # ... and the ALS slice
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -25,6 +26,15 @@ Phase 4  the training slice end to end at the same shape:
          quotients, as bench.py takes it), every epoch's train
          RMSE against the bias-only floor, K1's launch count, then a few
          ``recommend_batch`` calls from the trained model through K3.
+Phase 5  the WRMF/ALS slice end to end at bench_als's shape (69,878 x
+         10,677, 23M raw implicit draws, rank 64):
+         ``WRMFRecommender.train()`` with solver 'cg' (6 PCG steps, 3
+         after 2 epochs) through K2, timed as phase 4 is, K2's launch
+         count, the held-out P@5 gate through K3 against the popularity
+         floor, K2 on a real bucket against its plain version and the
+         exact solver, the split of each half-sweep, and a CUDA model's
+         CG epoch against a CPU model's.  Phase 2 also holds K2 to its
+         plain version on edge cases.
 
 Any failure exits non-zero.  On success the line before the last is the
 kernels' JSON summary and the last line is
@@ -59,6 +69,18 @@ K1_SSE_RTOL = 1e-3         # the t=0 residuals summed in another order
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 ML10M = dict(U=69_878, I=10_677, nnz=10_000_000)
+# K2 against its plain version: the tolerance of tests/test_als.py:303
+# (the Pallas kernel against the XLA loop): f32 sums in another order
+PCG_ATOL = 1e-4
+PCG_RTOL = 1e-3
+# bench.py bench_als's shape and settings (bench.py:271-297, 429): 23M
+# raw draws of make_implicit_data at the ML-10M shape, rank 64, init
+# N(0, 0.1), reg 0.015 (als_wrmf_train's default), CG 6 steps, 3 after 2
+# epochs
+ALS = dict(U=69_878, I=10_677, N=23_000_000)
+ALS_PARAMS = {'nbr_features': 64, 'feature_init': 0.1,
+              'regularization_model': 0.015, 'solver': 'cg', 'cg_steps': 6,
+              'cg_warm_steps': 3, 'cg_warmup_epochs': 2}
 
 
 def log(*a):
@@ -103,8 +125,8 @@ def timed_ms(fn, iters):
 
 def phase1():
     import torch
-    from mfrec_tpu_torch.ops import _cuda_build, half_pass_kernel, \
-        topn_kernel
+    from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
+        half_pass_kernel, topn_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -112,12 +134,13 @@ def phase1():
     log('nvcc: %s' % nv.strip().splitlines()[-1])
     log('card: %s' % card_line())
     t0 = time.perf_counter()
-    _cuda_build.build(['topn', 'half_pass'])
+    _cuda_build.build(['topn', 'half_pass', 'pcg'])
     topn_kernel._library()
     half_pass_kernel._library()
-    log('built csrc/topn.cu and csrc/half_pass.cu in %.1f s'
+    cg_kernel._library()
+    log('built csrc/topn.cu, csrc/half_pass.cu and csrc/pcg.cu in %.1f s'
         % (time.perf_counter() - t0))
-    for name in ('topn', 'half_pass'):
+    for name in ('topn', 'half_pass', 'pcg'):
         log(_cuda_build.build_log(name) or '')
 
 
@@ -179,7 +202,7 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
 
 
 def phase2():
-    return phase2_topn(), phase2_half_pass()
+    return phase2_topn(), phase2_half_pass(), phase2_pcg()
 
 
 def phase2_topn():
@@ -263,6 +286,15 @@ def _aug_factors(U, I, K, W, seed):
     return sgd_mf.augment_factors(P, Q, bu, bi)
 
 
+def roofline_ms(ops, nbytes):
+    '''The least time for ``ops`` f32 operations and ``nbytes`` moved:
+    the larger of the two over the card's peaks, in ms, and which one
+    bounds it.'''
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
 def k1_bound(seg, k, T):
     '''The least time the card could take for a K1 launch over
     ``seg``: the larger of its f32 operations (about 4k per rating and
@@ -277,9 +309,7 @@ def k1_bound(seg, k, T):
     ops = 4.0 * k * T * n
     nbytes = (12.0 * n + 12.0 * nb + 8.0 * ns + 8.0 * k * nb + 2.0 * k * nfix
               + 8.0 * k)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), \
-        'operations' if t_ops >= t_bytes else 'bytes'
+    return roofline_ms(ops, nbytes)
 
 
 def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
@@ -643,6 +673,38 @@ def bias_floor_rmse(users, items, vals, U, I):
     return float(np.sqrt(((vals - pred) ** 2).mean()))
 
 
+def retrieval_vs_plain(m, users, predictors):
+    '''``recommend_batch(users, 10)`` from a trained model (K3 on a CUDA
+    model) held to the plain top-n on the same device, per predictor.'''
+    import torch
+    from mfrec_tpu_torch.ops import topk
+    from mfrec_tpu_torch.ops.topn_kernel import (kernel_rated_lists,
+                                                 topn_agreement,
+                                                 topn_scores_ref)
+    dev = m.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for predictor in predictors:
+        idx, scores = m.recommend_batch(users, 10, predictor=predictor)
+        if not np.isfinite(scores).all():
+            raise SystemExit('non-finite scores from the trained model')
+        bu, bi, mu, _ = m._pallas_score_terms(m._predictor_mode(predictor))
+        ridx, rmask = topk.pad_rated_lists(m.ratings, users)
+        ridx, rcnt = kernel_rated_lists(ridx, rmask)
+        ref = topn_scores_ref(t(m.P[users]), t(m.Q), t(bu[users]), t(bi), mu,
+                              11, t(ridx), t(rcnt))
+        ok, err, swaps = topn_agreement(idx, scores, ref[0].cpu(),
+                                        ref[1].cpu(), 10, EXACT_ATOL,
+                                        tie=EXACT_TIE)
+        log('  recommend_batch(%d users, %s) from the trained model: ok=%s '
+            'max_abs_err=%.3g swaps=%d' % (len(users), predictor, ok, err,
+                                           swaps))
+        if not ok:
+            raise SystemExit('retrieval from the trained model disagrees')
+
+
 def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     '''The training slice through the public path at the JAX bench's
     model parameters (bench.py bench_model): rank 64, feature_init 0.05,
@@ -652,11 +714,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     import torch
     from mfrec_tpu_torch.models.gd import GDRecommender
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
-    from mfrec_tpu_torch.ops.topn_kernel import (kernel_rated_lists,
-                                                 topn_agreement,
-                                                 topn_scores_kernel,
-                                                 topn_scores_ref)
-    from mfrec_tpu_torch.ops import topk
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     K = 64
     card = card_line()
     t0 = time.perf_counter()
@@ -722,27 +780,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     # both paths meet: retrieval from the trained model, held to the plain
     # top-n on the same device
     users = np.random.default_rng(3).choice(U, 256, replace=False)
-    dev = m.device
-    for predictor in ('predict', 'predict_rating_with_bias'):
-        idx, scores = m.recommend_batch(users, 10, predictor=predictor)
-        if not np.isfinite(scores).all():
-            raise SystemExit('non-finite scores from the trained model')
-        bu, bi, mu, _ = m._pallas_score_terms(m._predictor_mode(predictor))
-        ridx, rmask = topk.pad_rated_lists(m.ratings, users)
-        ridx, rcnt = kernel_rated_lists(ridx, rmask)
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        ref = topn_scores_ref(t(m.P[users]), t(m.Q), t(bu[users]), t(bi), mu,
-                              11, t(ridx), t(rcnt))
-        ok, err, swaps = topn_agreement(idx, scores, ref[0].cpu(),
-                                        ref[1].cpu(), 10, EXACT_ATOL,
-                                        tie=EXACT_TIE)
-        log('  recommend_batch(256 users, %s) from the trained model: ok=%s '
-            'max_abs_err=%.3g swaps=%d' % (predictor, ok, err, swaps))
-        if not ok:
-            raise SystemExit('retrieval from the trained model disagrees')
+    retrieval_vs_plain(m, users, ('predict', 'predict_rating_with_bias'))
     k3_launches = topn_scores_kernel.launches
     log('  K1 launches %d, K3 launches %d during phase 4'
         % (k1_launches, k3_launches))
@@ -753,20 +791,578 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
                 rmse=h5, floor=floor, warmup_s=t_warm)
 
 
+def pcg_bound(R, k, steps):
+    '''K2's least time on R systems: M, b and x0 read and x written once,
+    4R(k^2 + 3k) bytes over the memory rate, against its 2Rk^2(steps + 1)
+    f32 operations over the FP32 peak.'''
+    return roofline_ms(2.0 * R * k * k * (steps + 1),
+                       4.0 * R * (k * k + 3 * k))
+
+
+def pcg_systems(R, k, kind, seed, device):
+    '''Seeded ``(M, b, x0)`` on ``device`` for a K2 check.  ``kind``:
+    'spd' (B B^T + 3I, as tests/test_als.py builds them; warm x0),
+    'cold' (x0 = 0), 'b0' (b = 0), 'solved' (M = I and x0 = b: r = 0,
+    so every step size takes its guard), 'identity' (M = I), 'asym'
+    (the CG path's bf16 assembly ``ops.als.cg_system`` with alpha = 2:
+    not symmetric).'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    if kind == 'asym':
+        n, L = 3 * k + 50, 24
+        F = t(rng.normal(0, 0.3, (n, k)))
+        idx = torch.from_numpy(rng.integers(0, n, (R, L)).astype(np.int32))
+        val = t(rng.uniform(1, 5, (R, L)))
+        mask = t(rng.random((R, L)) > 0.2)
+        out = t(rng.normal(0, 0.1, (R, k)))
+        M, b, x0 = als_ops.cg_system(
+            F.to(torch.bfloat16), out, als_ops._hh(F, 0.015),
+            torch.arange(R, device=dev), idx.to(dev), val, mask, 1.0, 2.0)
+        return M, b, x0
+    if kind in ('solved', 'identity'):
+        M = np.broadcast_to(np.eye(k, dtype=np.float32), (R, k, k))
+    else:
+        B = rng.normal(0, 1, (R, k, k)).astype(np.float32)
+        M = np.einsum('rij,rkj->rik', B, B) + 3.0 * np.eye(k,
+                                                            dtype=np.float32)
+    b = np.zeros((R, k), np.float32) if kind == 'b0' else \
+        rng.normal(0, 1, (R, k)).astype(np.float32)
+    x0 = np.zeros((R, k), np.float32) if kind == 'cold' else \
+        b if kind == 'solved' else \
+        rng.normal(0, 0.1, (R, k)).astype(np.float32)
+    return t(M), t(b), t(x0)
+
+
+def pcg_case(name, M, b, x0, steps, iters=0, plain_iters=0, f64=False):
+    '''K2 against its plain version on the same inputs; returns its
+    record (with kernel and plain times when ``iters``).
+
+    ``f64``: also run the iteration in float64 on the same inputs (the
+    plain loop ``ops.als.pcg_solve``).  Mid-way through a warm-started
+    solve of the real buckets, f32 CG trajectories that differ only in
+    summation order drift apart faster than PCG_ATOL/PCG_RTOL allow (at 6
+    steps the two plain torch versions differ from each other, and numpy's
+    f32 iteration from the f64 one, by ~2e-4; they meet again once PCG
+    converges).  There the kernel passes when it is as close to the
+    float64 iteration as its plain version is, within a factor of 2.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel, \
+        pcg_solve_ref
+    xk = pcg_solve_kernel(M, b, x0, steps)
+    if M.is_cuda:
+        torch.cuda.synchronize()
+    xp = pcg_solve_ref(M, b, x0, steps)
+    diff = (xk - xp).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    within = bool((diff <= PCG_ATOL + PCG_RTOL * xp.abs()).all())
+    ok = bool(torch.isfinite(xk).all()) and within
+    R, k = b.shape
+    rec = {'case': name, 'R': R, 'k': k, 'steps': steps, 'ok': ok,
+           'max_abs_err': err, 'within_tolerance': within}
+    if f64:
+        x64 = als_ops.pcg_solve(M.double(), b.double(), x0.double(), steps)
+        rec['kernel_err_f64'] = float((xk.double() - x64).abs().max())
+        rec['plain_err_f64'] = float((xp.double() - x64).abs().max())
+        rec['ok'] = bool(torch.isfinite(xk).all()) and (
+            within or rec['kernel_err_f64'] <= 2.0 * rec['plain_err_f64'])
+        ok = rec['ok']
+        log('  %-34s against the float64 iteration: kernel %.3g, plain '
+            'version %.3g' % (name, rec['kernel_err_f64'],
+                              rec['plain_err_f64']))
+    if iters:
+        rec['ms'] = timed_ms(lambda: pcg_solve_kernel(M, b, x0, steps), iters)
+        rec['plain_ms'] = timed_ms(lambda: pcg_solve_ref(M, b, x0, steps),
+                                   plain_iters or iters)
+        rec['bound_ms'], rec['bound_by'] = pcg_bound(R, k, steps)
+    log('  %-34s ok=%s max_abs_err=%.3g%s%s' % (
+        name, ok, err, '' if within else ' (outside atol %g rtol %g)'
+        % (PCG_ATOL, PCG_RTOL), ' kernel %.3f ms, plain %.3f ms, bound '
+        '%.3f ms' % (rec['ms'], rec['plain_ms'], rec['bound_ms'])
+        if iters else ''))
+    return rec
+
+
+def phase2_pcg(device='cuda'):
+    '''K2 against its plain version on edge cases: R of 1, 37 and 4,099
+    (a ragged last block), k from 8 to 256 (the streamed-M layout at 256,
+    odd and non-multiple-of-4 k), steps 0, the guards and the
+    asymmetric assembly; then timed at R=48,547, k=64 (the ALS epoch's
+    largest bucket) on random systems.'''
+    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
+    log('phase 2: K2 against its plain version (atol %g, rtol %g)'
+        % (PCG_ATOL, PCG_RTOL))
+    cases = [('R=1 k=8', 1, 8, 'spd', 5), ('R=37 k=8 cold', 37, 8, 'cold', 1),
+             ('R=37 k=20', 37, 20, 'spd', 5),
+             ('R=37 k=20 steps=0', 37, 20, 'spd', 0),
+             ('R=37 k=37 (odd k)', 37, 37, 'spd', 5),
+             ('R=37 k=64', 37, 64, 'spd', 5),
+             ('R=37 k=130', 37, 130, 'spd', 5),
+             ('R=37 k=130 steps=0', 37, 130, 'spd', 0),
+             ('R=37 k=256 (M streamed)', 37, 256, 'spd', 5),
+             ('R=1 k=256 steps=0', 1, 256, 'spd', 0),
+             ('R=37 k=64 b=0', 37, 64, 'b0', 5),
+             ('R=37 k=64 solved (r=0)', 37, 64, 'solved', 5),
+             ('R=37 k=256 solved (r=0)', 37, 256, 'solved', 3),
+             ('R=37 k=64 identity', 37, 64, 'identity', 5),
+             ('R=37 k=20 asymmetric alpha=2', 37, 20, 'asym', 3),
+             ('R=37 k=64 asymmetric alpha=2', 37, 64, 'asym', 6),
+             ('R=37 k=130 asymmetric alpha=2', 37, 130, 'asym', 6),
+             ('R=4099 k=64', 4099, 64, 'spd', 3)]
+    recs = []
+    for j, (name, R, k, kind, steps) in enumerate(cases):
+        M, b, x0 = pcg_systems(R, k, kind, seed=j, device=device)
+        if kind == 'asym' and not bool((M - M.transpose(1, 2)).abs().max()
+                                       > 0):
+            raise SystemExit('the asymmetric case came out symmetric')
+        recs.append(pcg_case(name, M, b, x0, steps))
+    # times at the ALS epoch's largest bucket shape, on random systems
+    M, b, x0 = pcg_systems(48547, 64, 'spd', seed=1, device=device)
+    for steps in (3, 6):
+        recs.append(pcg_case('R=48547 k=64 steps=%d' % steps, M, b, x0,
+                             steps, iters=10, plain_iters=3))
+    M, b, x0 = pcg_systems(0, 64, 'spd', seed=0, device=device)
+    before = pcg_solve_kernel.launches
+    empty = pcg_solve_kernel(M, b, x0, 3)
+    if tuple(empty.shape) != (0, 64) or pcg_solve_kernel.launches != before:
+        raise SystemExit('R=0 must return [0, k] without a launch')
+    bad = [r['case'] for r in recs if not r['ok']]
+    if bad:
+        raise SystemExit('phase 2 (K2) failed: %s' % bad)
+    return recs
+
+
+def make_implicit_data(U, I, N, seed=0, clusters=32, heldout_per_user=3):
+    '''Copy of ``bench.py``'s ``make_implicit_data`` (bench.py:178-216):
+    implicit interactions with planted cluster structure.  Users belong
+    to taste clusters, each with its own popularity-skewed item
+    propensity.  Returns (train_users, train_items, test_users,
+    test_items): the last ``heldout_per_user`` interactions of each user
+    with at least twice that many are held out.'''
+    rng = np.random.default_rng(seed)
+    cu = rng.integers(0, clusters, U)
+    ranks = np.arange(1, I + 1, dtype=np.float64)
+    pop = 1.0 / ranks ** 1.1
+    aff = rng.gamma(0.3, 1.0, (clusters, I))
+    probs = aff * pop[None, :]
+    probs /= probs.sum(1, keepdims=True)
+    users = rng.integers(0, U, N).astype(np.int32)
+    items = np.empty(N, np.int32)
+    ucl = cu[users]
+    for c in range(clusters):
+        sel = np.nonzero(ucl == c)[0]
+        items[sel] = rng.choice(I, sel.size, p=probs[c]).astype(np.int32)
+    order = np.argsort(users, kind='stable')
+    su, si = users[order], items[order]
+    starts = np.searchsorted(su, np.arange(U))
+    ends = np.searchsorted(su, np.arange(U) + 1)
+    counts = ends - starts
+    test_mask = np.zeros(N, bool)
+    eligible = counts >= 2 * heldout_per_user
+    for h in range(1, heldout_per_user + 1):
+        test_mask[ends[eligible] - h] = True
+    return (su[~test_mask], si[~test_mask],
+            su[test_mask], si[test_mask])
+
+
+def _gate_users(test_u, max_users):
+    '''The gate's users (the first ``max_users`` with held-out items) and
+    each one's held-out segment of ``test_i`` in ``test_u`` order.'''
+    eval_users = np.unique(test_u)[:max_users]
+    order = np.argsort(test_u, kind='stable')
+    starts = np.searchsorted(test_u[order], eval_users)
+    ends = np.searchsorted(test_u[order], eval_users + 1)
+    return eval_users, order, starts, ends
+
+
+def _hits(top, test_i, order, starts, ends, s0):
+    ti = test_i[order]
+    return sum(len(set(ti[starts[s0 + j]:ends[s0 + j]].tolist())
+                   & set(top[j].tolist())) for j in range(top.shape[0]))
+
+
+def als_ranking_gate(P, Q, r_train, test_u, test_i, U, I, n=5,
+                     max_users=4096, device='cuda', strict=False):
+    '''Torch copy of ``bench.py``'s ``_als_ranking_gate``
+    (bench.py:219-258): held-out P@n of the factors and of the
+    popularity ranking on the first ``max_users`` users with held-out
+    items, their train items masked.  Returns (p_model, p_popularity).
+
+    The original masks by a scatter-set over the padded rated lists,
+    whose padding slots repeat item 0 with mask 0; the JAX CPU backend
+    applies a scatter's updates in order, so the last slot wins and item
+    0 is left unmasked for every user whose list has padding.  This copy
+    does the same (the same numbers), or masks every train item with
+    ``strict=True``.'''
+    import torch
+    from mfrec_tpu_torch.ops.als import ieee_f32
+    from mfrec_tpu_torch.ops.topk import pad_rated_lists
+    dev = torch.device(device)
+    eval_users, order, starts, ends = _gate_users(test_u, max_users)
+    rated_idx, rated_mask = pad_rated_lists(r_train, eval_users)
+    pop_row = torch.from_numpy(np.bincount(
+        r_train.coo()[1], minlength=I).astype(np.float32)[None, :]).to(dev)
+    Qd = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(dev)
+    hits_m = hits_p = 0
+    chunk = 1024
+    for s0 in range(0, eval_users.shape[0], chunk):
+        us = eval_users[s0:s0 + chunk]
+        ri = rated_idx[s0:s0 + chunk].astype(np.int64)
+        rm = rated_mask[s0:s0 + chunk] > 0
+        flat = (np.arange(us.shape[0])[:, None] * I + ri).ravel()
+        if strict:
+            neg = np.unique(flat[rm.ravel()])
+        else:                  # the last slot of each position decides
+            rev = flat[::-1]
+            _, first = np.unique(rev, return_index=True)
+            last = flat.size - 1 - first
+            neg = flat[last][rm.ravel()[last]]
+        neg = torch.from_numpy(neg).to(dev)
+
+        def masked_topn(scores):
+            s = scores.clone().reshape(-1)
+            s[neg] = -3e38
+            s = s.reshape(scores.shape)
+            return torch.sort(s, dim=1, descending=True,
+                              stable=True)[1][:, :n].cpu().numpy()
+
+        with torch.no_grad():
+            Pu = torch.from_numpy(np.ascontiguousarray(P[us],
+                                                       np.float32)).to(dev)
+            with ieee_f32():
+                top_m = masked_topn(Pu @ Qd.T)
+            top_p = masked_topn(pop_row.expand(us.shape[0], I))
+        hits_m += _hits(top_m, test_i, order, starts, ends, s0)
+        hits_p += _hits(top_p, test_i, order, starts, ends, s0)
+    denom = max(eval_users.shape[0] * n, 1)
+    return hits_m / denom, hits_p / denom
+
+
+def k2_split(F_fix, F_upd, buckets, reg, steps):
+    '''Device time of one CG half-sweep, by CUDA events, split into the
+    gather + Gram assembly (``cg_system``), K2 and the rest (the fixed
+    side's Gram and bf16 cast, the write-backs), replaying
+    ``_bucket_cg_body``'s steps bucket by bucket.  Returns ms.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    F_upd = F_upd.clone()
+    torch.cuda.synchronize()
+    t0 = ev()
+    HHreg = als_ops._hh(F_fix, reg)
+    Fb = F_fix.to(torch.bfloat16)
+    gram = k2 = 0.0
+    marks = []
+    for rows, nidx, nval, mask in buckets:
+        a = ev()
+        M, b, x0 = als_ops.cg_system(Fb, F_upd, HHreg, rows, nidx, nval,
+                                     mask, 1.0, 0.0)
+        c = ev()
+        x = pcg_solve_kernel(M, b, x0, steps)
+        d = ev()
+        F_upd[rows.long()] = x
+        del M, b, x0, x
+        marks.append((a, c, d))
+    t1 = ev()
+    t1.synchronize()
+    for a, c, d in marks:
+        gram += a.elapsed_time(c)
+        k2 += c.elapsed_time(d)
+    total = t0.elapsed_time(t1)
+    return {'total_ms': total, 'gram_ms': gram, 'k2_ms': k2,
+            'rest_ms': total - gram - k2}
+
+
+def pcg_drift(M, b, x0, steps=(3, 6, 10, 20), sample=512):
+    '''How far f32 PCG trajectories that differ only in summation order
+    drift apart on these systems: per step count, the largest distance
+    of K2, its plain version and the plain matmul loop from the float64
+    iteration (the loop on the same inputs), and the plain versions'
+    distance from each other; with the spectrum of the first ``sample``
+    systems (eigenvalues, and the Jacobi-preconditioned condition
+    number).  Logged only: the checks are in ``pcg_case``.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel, \
+        pcg_solve_ref
+    Ms = M[:sample].double()
+    ev = torch.linalg.eigvalsh(Ms)
+    dh = torch.diagonal(Ms, dim1=1, dim2=2).rsqrt()
+    evp = torch.linalg.eigvalsh(Ms * dh[:, :, None] * dh[:, None, :])
+    log('  the bucket\'s first %d systems: eigenvalues %.4g to %.4g, '
+        'Jacobi-preconditioned condition median %.4g'
+        % (Ms.shape[0], float(ev[:, 0].min()), float(ev[:, -1].max()),
+           float((evp[:, -1] / evp[:, 0]).median())))
+    M64, b64, x64_0 = M.double(), b.double(), x0.double()
+    for n in steps:
+        x64 = als_ops.pcg_solve(M64, b64, x64_0, n)
+        xk = pcg_solve_kernel(M, b, x0, n)
+        xp = pcg_solve_ref(M, b, x0, n)
+        xl = als_ops.pcg_solve(M, b, x0, n)
+
+        def dist(a, c):
+            return float((a.double() - c.double()).abs().max())
+
+        log('  steps %2d: from the float64 iteration K2 %.3g, plain version '
+            '%.3g, plain matmul loop %.3g; plain version vs loop %.3g'
+            % (n, dist(xk, x64), dist(xp, x64), dist(xl, x64),
+               dist(xp, xl)))
+
+
+def warm_epoch_device(m, ubd, ibd):
+    '''One warm CG epoch (``cg_epoch`` at 3 steps) of model ``m``'s
+    factors over the device buckets: its CUDA-event time (median of 5),
+    its host-clock time, and the kernels' busy time in it by
+    ``torch.profiler`` (idle share = 1 - busy / host time; None where the
+    profiler reports no device time).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mfrec_tpu_torch.ops import als as als_ops
+    dev = m.device
+    P = torch.from_numpy(m.P).to(dev)
+    Q = torch.from_numpy(m.Q).to(dev)
+    alive = [torch.from_numpy(als_ops._alive_mask(bk, n)).to(dev)
+             for bk, n in ((ubd, m.nbr_users), (ibd, m.nbr_items))]
+
+    def epoch():
+        return als_ops.cg_epoch(P, Q, alive[0], alive[1], ubd, ibd, 1.0, 0.0,
+                                float(m.K), 3, 'pallas')
+
+    ev = timed_ms(epoch, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, 'device_type', '')).endswith('CUDA'):
+            busy += getattr(e, 'self_device_time_total',
+                            getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
+    return {'epoch_event_ms': ev, 'epoch_wall_ms': wall, 'busy_ms': busy,
+            'idle': (1.0 - busy / wall) if busy > 0 else None}
+
+
+def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
+           reduced=(3000, 700, 60_000)):
+    '''The WRMF/ALS slice through the public path at bench_als's shape
+    and settings: ``WRMFRecommender.train()`` (solver 'cg', 6 PCG steps,
+    3 after 2 epochs), a 1-epoch warm-up then 3 blocks of a 2- and a
+    5-epoch run (their difference: three pure warm epochs), K2's launch
+    count, the held-out P@5 gate through ``recommend_batch`` (K3)
+    against the popularity floor, the served lists against K3's plain
+    twin, K2 on a real bucket against its plain version and the exact
+    solver, the split of a half-sweep, and a CUDA model's CG epoch
+    against a CPU model's at a reduced shape.'''
+    import torch
+    from mfrec_tpu_torch.data.movielens import ratings_from_arrays
+    from mfrec_tpu_torch.models.wrmf import WRMFRecommender
+    from mfrec_tpu_torch.ops import als as als_ops
+    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    card = card_line()
+    on_card = device == 'cuda'
+    t0 = time.perf_counter()
+    users, items, test_u, test_i = make_implicit_data(U, I, N, seed=0)
+    m = WRMFRecommender(U, I, ALS_PARAMS, device=device)
+    m.set_ratings(users, items, np.ones(users.shape[0], np.float32))
+    ub = m.ratings.padded_rows(axis='user')
+    ib = m.ratings.padded_rows(axis='item')
+    per_epoch = len(ub) + len(ib)
+    K = m.dimensionality
+    log('phase 5: WRMFRecommender(%d, %d, rank %d, cg %d->%d after %d).'
+        'train() on %s: %d training and %d held-out draws, nnz %d; user '
+        'buckets (L, R) %s, item buckets %s: %d K2 launches per epoch '
+        '(%.1f s to build)' % (
+            U, I, K, m.cg_steps, m.cg_warm_steps, m.cg_warmup_epochs, device,
+            users.shape[0], test_u.shape[0], m.ratings.nnz,
+            [(b[1].shape[1], b[0].shape[0]) for b in ub],
+            [(b[1].shape[1], b[0].shape[0]) for b in ib], per_epoch,
+            time.perf_counter() - t0))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def train_timed(epochs):
+        m.nbr_epochs = epochs
+        sync()
+        t = time.perf_counter()
+        m.train()
+        sync()
+        return time.perf_counter() - t
+
+    t_warm = train_timed(1)
+    # one real bucket's systems, from the warmed-up factors: the user
+    # bucket with the most rows
+    big = max(range(len(ub)), key=lambda j: ub[j][0].shape[0])
+    dev = m.device
+    Pd = torch.from_numpy(m.P).to(dev)
+    Qd = torch.from_numpy(m.Q).to(dev)
+    bucket = tuple(torch.from_numpy(x).to(dev) for x in ub[big])
+    HHreg = als_ops._hh(Qd, m.K)
+    M, b, x0 = als_ops.cg_system(Qd.to(torch.bfloat16), Pd, HHreg,
+                                 *bucket, 1.0, 0.0)
+    del HHreg
+    pcg_solve_kernel.launches = 0          # from here on: the main path
+    topn_scores_kernel.launches = 0
+    marg = []
+    for _ in range(3):
+        t2 = train_timed(2)
+        t5 = train_timed(5)
+        marg.append((t5 - t2) / 3.0)
+        log('  2 epochs %.3f s, 5 epochs %.3f s: epoch %.4f s  [%s]'
+            % (t2, t5, marg[-1], card))
+    k2_launches = pcg_solve_kernel.launches
+    epoch_s = float(np.median(marg))
+    log('  warm-up 1 epoch %.2f s; epoch %.4f s (median of 3); K2 launches '
+        '%d over 21 epochs (%.1f per epoch)  [%s]'
+        % (t_warm, epoch_s, k2_launches, k2_launches / 21.0, card))
+    if not (np.isfinite(m.P).all() and np.isfinite(m.Q).all()):
+        raise SystemExit('non-finite factors from the ALS training')
+    if on_card and k2_launches != 21 * per_epoch:
+        raise SystemExit('K2 launched %d times, expected %d'
+                         % (k2_launches, 21 * per_epoch))
+    # the bench's quality gate, the model's lists through recommend_batch
+    r_train = ratings_from_arrays(users, items, np.ones(users.shape[0],
+                                                        np.float32), U, I)
+    eval_users, order, starts, ends = _gate_users(test_u, 4096)
+    top, _ = m.recommend_batch(eval_users, 5)
+    p5 = _hits(top, test_i, order, starts, ends, 0) / (eval_users.size * 5)
+    p5_copy, floor = als_ranking_gate(m.P, m.Q, r_train, test_u, test_i, U,
+                                      I, device=device)
+    p5_strict, floor_strict = als_ranking_gate(m.P, m.Q, r_train, test_u,
+                                               test_i, U, I, device=device,
+                                               strict=True)
+    log('  held-out P@5 through recommend_batch %.4f (the gate copy: %.4f, '
+        'every train item masked: %.4f); popularity floor %.4f (every '
+        'train item masked: %.4f), %d users  [%s]'
+        % (p5, p5_copy, p5_strict, floor, floor_strict, eval_users.size,
+           card))
+    # like against like: K3 masks every train item, the bench's gate
+    # leaves item 0 unmasked (als_ranking_gate)
+    if not (p5 > floor_strict and p5_copy > floor):
+        raise SystemExit('held-out P@5 does not beat the popularity floor: '
+                         '%.4f vs %.4f (every train item masked), %.4f vs '
+                         '%.4f (the bench\'s gate)'
+                         % (p5, floor_strict, p5_copy, floor))
+    serve_users = np.random.default_rng(3).choice(U, 256, replace=False)
+    retrieval_vs_plain(m, serve_users, ('predict',))
+    k3_launches = topn_scores_kernel.launches
+    if on_card and k3_launches == 0:
+        raise SystemExit('retrieval from the trained WRMF never launched K3')
+    # K2 on the real bucket against its plain version and the exact solver
+    recs = [pcg_case('real bucket L=%d steps=%d' % (bucket[1].shape[1], s),
+                     M, b, x0, s, iters=10, plain_iters=3, f64=True)
+            for s in (6, 3)]
+    pcg_drift(M, b, x0)
+    exact_ms = timed_ms(lambda: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky(M)), 3)
+    log('  exact solver (torch.linalg.cholesky + cholesky_solve) on the same '
+        '%d systems: %.3f ms  [%s]' % (M.shape[0], exact_ms, card))
+    del M, b, x0
+    split = {}
+    if on_card:
+        ubd = als_ops.device_buckets(ub, dev)
+        ibd = als_ops.device_buckets(ib, dev)
+        Pd = torch.from_numpy(m.P).to(dev)
+        Qd = torch.from_numpy(m.Q).to(dev)
+        for side, args in (('user', (Qd, Pd, ubd)), ('item', (Pd, Qd, ibd))):
+            k2_split(*args, m.K, 3)              # warm the allocator
+            split[side] = k2_split(*args, m.K, 3)
+            log('  %s half-sweep at 3 steps: %.3f ms on the card = gather + '
+                'Gram %.3f + K2 %.3f + rest %.3f  [%s]'
+                % (side, split[side]['total_ms'], split[side]['gram_ms'],
+                   split[side]['k2_ms'], split[side]['rest_ms'], card))
+        split['bound_ms_epoch'] = sum(
+            pcg_bound(int(x[0].shape[0]), K, 3)[0] for x in ub + ib)
+        split.update(warm_epoch_device(m, ubd, ibd))
+        del ubd, ibd
+        log('  one warm epoch (cg_epoch, 3 steps): %.3f ms by CUDA events '
+            '(median of 5), %.3f ms on the host clock; kernels busy %.3f ms '
+            'of it by torch.profiler: device idle %s  [%s]'
+            % (split['epoch_event_ms'], split['epoch_wall_ms'],
+               split['busy_ms'], 'not measured' if split['idle'] is None
+               else '%.1f %%' % (100 * split['idle']), card))
+        # a CUDA model's CG epoch against a CPU model's, same factors
+        ru, ri, rn = reduced
+        su, si, _, _ = make_implicit_data(ru, ri, rn, seed=1)
+        preds = []
+        for d in ('cuda', 'cpu'):
+            mm = WRMFRecommender(ru, ri, dict(ALS_PARAMS, nbr_epochs=1),
+                                 device=d)
+            mm.seed(5)
+            mm.set_ratings(su, si, np.ones(su.shape[0], np.float32))
+            mm.train()
+            preds.append(mm.P @ mm.Q.T)
+        rms = float(np.sqrt(((preds[0] - preds[1]) ** 2).mean()))
+        log('  one CG epoch at %d x %d: CUDA model vs CPU model prediction '
+            'rms %.3g (limit 1e-3)' % (ru, ri, rms))
+        if not rms < 1e-3:
+            raise SystemExit('the CUDA model\'s CG epoch disagrees with the '
+                             'CPU model\'s: rms %.3g' % rms)
+    bad = [r['case'] for r in recs if not r['ok']]
+    if bad:
+        raise SystemExit('phase 5 (K2) failed: %s' % bad)
+    return dict(k2_launches=k2_launches, k3_launches=k3_launches,
+                epoch_s=epoch_s, epoch_s_blocks=marg, warmup_s=t_warm,
+                p5=p5, p5_copy=p5_copy, floor=floor,
+                floor_strict=floor_strict, recs=recs,
+                exact_ms=exact_ms, split=split, per_epoch=per_epoch)
+
+
 def k3_bound(B, I, k):
     '''K3's least time at one shape: 2*B*I*k f32 FMA operations over the
     FP32 peak against P, Q, the biases and the result moved once.'''
-    ops = 2.0 * B * I * k
-    nbytes = 4.0 * (B * k + I * k + B + I) + 8.0 * B * 10
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), \
-        'operations' if t_ops >= t_bytes else 'bytes'
+    return roofline_ms(2.0 * B * I * k,
+                       4.0 * (B * k + I * k + B + I) + 8.0 * B * 10)
 
+
+
+def k2_entry(k2_recs, als):
+    '''K2's entry of the kernels line: times on phase 5's real bucket at
+    the warm step count (3), launches over phase 5's training.'''
+    if not als:
+        return []
+    real = {r['steps']: r for r in als['recs']}
+    split = als['split']
+    return [{
+        'name': 'pcg (K2, warm-started Jacobi-PCG on batched k x k systems)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/pcg.cu',
+        'replaces': 'mfrec_tpu/ops/pallas_cg.py:26',
+        'launches': als['k2_launches'],
+        'max_abs_err': max(r['max_abs_err'] for r in k2_recs + als['recs']),
+        'ms': real[3]['ms'], 'plain_ms': real[3]['plain_ms'],
+        'bound_ms': real[3]['bound_ms'], 'bound_by': real[3]['bound_by'],
+        'library_ms': None,
+        'shape': 'the largest user bucket of the ALS epoch: R=%d k=64 '
+                 'steps=3' % real[3]['R'],
+        'ms_steps6': real[6]['ms'], 'plain_ms_steps6': real[6]['plain_ms'],
+        'bound_ms_steps6': real[6]['bound_ms'],
+        'exact_solver_ms': als['exact_ms'],
+        'ms_per_epoch_k2': split['user']['k2_ms'] + split['item']['k2_ms'],
+        'bound_ms_per_epoch': split['bound_ms_epoch'],
+        'launches_per_epoch': als['per_epoch'],
+        'epoch_s': als['epoch_s']}]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
-    ap.add_argument('--phases', default='1234',
+    ap.add_argument('--phases', default='12345',
                     help='which phases to run (default: all)')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, 'mfrec_tpu_torch')):
@@ -780,10 +1376,11 @@ def main(argv=None):
         return 2
     if '1' in args.phases:
         phase1()
-    k3_recs, (k1_recs, k1_time) = phase2() if '2' in args.phases else \
-        ([], ([], {}))
+    k3_recs, (k1_recs, k1_time), k2_recs = phase2() \
+        if '2' in args.phases else ([], ([], {}), [])
     launches, worst = phase3() if '3' in args.phases else (None, 0.0)
     train = phase4() if '4' in args.phases else {}
+    als = phase5() if '5' in args.phases else {}
     if k3_recs:
         k3_ms, k3_by = k3_bound(1024, 360_000, 64)
         main1 = k1_recs[0]
@@ -814,7 +1411,7 @@ def main(argv=None):
             'bound_ms_half_pass_user': k1_time['user']['bound_ms'],
             'bound_ms_half_pass_item': k1_time['item']['bound_ms'],
             'ms_longest_chain': k1_time['chain']['ms'],
-            'epoch_s': train.get('epoch_s')}]}))
+            'epoch_s': train.get('epoch_s')}] + k2_entry(k2_recs, als)}))
     log(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ What is ported so far:
 * the training slice: ``GDRecommender.train()`` /
   ``feature_training_bias()`` on the single-device sorted-window
   alternating engine, whose batch step is the hand-written CUDA kernel
-  K1 on a GPU (``csrc/half_pass.cu``).
+  K1 on a GPU (``csrc/half_pass.cu``);
+* the WRMF/ALS slice: ``WRMFRecommender.train()`` on the single-device
+  nnz-bucket half-sweeps, exact (batched Cholesky) or CG, whose PCG
+  iterations are the hand-written CUDA kernel K2 on a GPU
+  (``csrc/pcg.cu``), and ``eval.metrics.precision_recall``.
 
 Models take ``device='cuda'`` (default) or ``device='cpu'``.
 '''
@@ -22,8 +26,10 @@ __version__ = '0.1.0'
 from mfrec_tpu_torch.models.base import BaseRecommender, DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.models.gd import GDRecommender
+from mfrec_tpu_torch.models.wrmf import WRMFRecommender
 from mfrec_tpu_torch.serving import RecommenderServer
 from mfrec_tpu_torch import interop
 
 __all__ = ['BaseRecommender', 'DefaultRate', 'Error', 'MFRecommender',
-           'GDRecommender', 'RecommenderServer', 'interop']
+           'GDRecommender', 'WRMFRecommender', 'RecommenderServer',
+           'interop']

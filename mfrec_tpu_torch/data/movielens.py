@@ -1,11 +1,26 @@
 '''
-Synthetic MovieLens-shaped ratings and the train/test split, copied from
-``mfrec_tpu/data/movielens.py`` (that package imports jax).  The file
-loaders are not ported yet.
+Synthetic MovieLens-shaped ratings, the train/test split and
+``ratings_from_arrays``, copied from ``mfrec_tpu/data/movielens.py``
+(that package imports jax).  The file loaders are not ported yet.
 '''
 from __future__ import annotations
 
 import numpy as np
+
+from mfrec_tpu_torch.data.ratings import Ratings
+
+
+def ratings_from_arrays(users, items, values, nbr_users=None, nbr_items=None):
+    users = np.asarray(users, np.int32)
+    items = np.asarray(items, np.int32)
+    values = np.asarray(values, np.float32)
+    if nbr_users is None:
+        nbr_users = int(users.max()) + 1
+    if nbr_items is None:
+        nbr_items = int(items.max()) + 1
+    r = Ratings(nbr_users, nbr_items)
+    r.set_many(users, items, values)
+    return r
 
 
 def synthetic_ratings(nbr_users=500, nbr_items=300, nbr_ratings=8000,

@@ -3,14 +3,15 @@ Carry a model's state from the JAX package into the port.
 
 Both entry points take numpy only, so neither needs jax installed:
 
-* ``load_jax_state(path, device)`` reads the files that
+* ``load_jax_state(path, device, model_class)`` reads the files that
   ``mfrec_tpu``'s ``BaseRecommender.save_state(path)`` writes
   (``path``_state.npz + ``path``_state.json: ratings, ``svd_u``/``svd_v``,
   biases, ``extra_*`` arrays, labels and metadata);
 * ``from_numpy(...)`` builds the same model from arrays.
 
-Each returns a port ``GDRecommender`` that computes what the JAX model
-computes.
+Each returns a port model of ``model_class`` (``GDRecommender`` by
+default; a JAX checkpoint does not record its class, so the caller names
+it, e.g. ``WRMFRecommender``) that computes what the JAX model computes.
 '''
 from __future__ import annotations
 
@@ -20,18 +21,20 @@ from mfrec_tpu_torch.engine import checkpoint as ckpt
 from mfrec_tpu_torch.models.gd import GDRecommender
 
 
-def load_jax_state(path, device='cuda'):
-    '''A ``GDRecommender`` on ``device`` from a JAX-package checkpoint.'''
+def load_jax_state(path, device='cuda', model_class=GDRecommender):
+    '''A ``model_class`` model on ``device`` from a JAX-package
+    checkpoint.'''
     _, _, metadata = ckpt.load_state(path)
-    model = GDRecommender(int(metadata['nbr_users']),
-                          int(metadata['nbr_items']), device=device)
+    model = model_class(int(metadata['nbr_users']),
+                        int(metadata['nbr_items']), device=device)
     model.load_state(path)
     return model
 
 
 def from_numpy(P, Q, users_bias, items_bias, overall_bias, ratings,
-               labels=None, device='cuda', parameters=None):
-    '''A ``GDRecommender`` on ``device`` from arrays: ``P`` [users, k],
+               labels=None, device='cuda', parameters=None,
+               model_class=GDRecommender):
+    '''A ``model_class`` model on ``device`` from arrays: ``P`` [users, k],
     ``Q`` [items, k], the biases (None for none), ``ratings`` as a
     ``(users, items, values)`` triple, optional ``labels``
     ``{'users': [...], 'items': [...]}``, and optional ``parameters`` in
@@ -45,7 +48,7 @@ def from_numpy(P, Q, users_bias, items_bias, overall_bias, ratings,
     if params.setdefault('nbr_features', P.shape[1]) != P.shape[1]:
         raise ValueError('parameters say nbr_features=%r, the factors have '
                          'k=%d' % (params['nbr_features'], P.shape[1]))
-    model = GDRecommender(P.shape[0], Q.shape[0], params, device=device)
+    model = model_class(P.shape[0], Q.shape[0], params, device=device)
     model.P, model.Q = P, Q
     if users_bias is not None:
         model.users_bias = np.asarray(users_bias, np.float32)

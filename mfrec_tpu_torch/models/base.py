@@ -169,6 +169,19 @@ class BaseRecommender(object):
         self.users.rebuild()
         self.items.rebuild()
 
+    def initialize_rated_feedback(self):
+        '''Build the (rated [N,2], per-user (seek, span)) arrays consumed by
+        the SVD++ path (reference base.py:228-263).'''
+        u, i, _ = self.ratings.coo()
+        self.feedback_rated = np.stack([u, i], 1).astype(np.int32)
+        ptr = self.ratings.csr()[0]
+        seek = ptr[:-1].astype(np.int32)
+        span = np.diff(ptr).astype(np.int32)
+        empty = span == 0
+        seek[empty] = -1
+        span[empty] = -1
+        self.feedback_hash = np.stack([seek, span], 1)
+
     # -------------------------------------------------------------- biases
     def compute_overall_avg(self):
         self.overall_bias = self.ratings.overall_avg()

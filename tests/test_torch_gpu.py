@@ -1,5 +1,5 @@
-'''K3 and K1 on a CUDA device: each kernel against its plain version, and
-a CUDA model against the same model on the CPU.  Every case is marked
+'''K3, K1 and K2 on a CUDA device: each kernel against its plain version,
+and a CUDA model against the same model on the CPU.  Every case is marked
 ``gpu`` and skips without a card.  This file imports no JAX, so on a GPU
 host without it run it alone, without the suite's conftest:
 
@@ -11,7 +11,9 @@ fast mode within one quantization step (rtol 2^-10, atol 1e-5).  K1:
 the bf16 tolerances of tests/test_pallas_half_pass.py (window atol
 5e-3, rtol 5e-2; SSE 1e-3 relative): kernel and plain version round to
 bf16 at the same places, but an f32 ulp from FMA contraction or
-summation order can flip one bf16 rounding of the window read.'''
+summation order can flip one bf16 rounding of the window read.  K2:
+atol 1e-4, rtol 1e-3 (tests/test_als.py:303, f32 sums in another
+order).'''
 import numpy as np
 import pytest
 import torch
@@ -228,3 +230,103 @@ def test_cuda_model_trains_through_k1(cuda):
     assert m.P.shape == (800, 16) and isinstance(m.P, np.ndarray)
     idx, _ = m.recommend_batch(np.arange(8), 5)
     assert idx.shape == (8, 5)
+
+
+# K2: the tolerance of tests/test_als.py:303 (f32 sums in another order)
+K2_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize('start', ['spd', 'cold'])
+@pytest.mark.parametrize('steps', [0, 1, 5])
+@pytest.mark.parametrize('k', [8, 20, 64, 130, 256])
+def test_pcg_kernel_matches_plain(cuda, k, steps, start):
+    '''R=37 (no multiple of a block's 4 systems); k=256 streams M from
+    device memory, the others keep it in shared memory.'''
+    import chip_smoke
+    from mfrec_tpu_torch.ops import cg_kernel
+    M, b, x0 = chip_smoke.pcg_systems(37, k, start, seed=k + steps,
+                                      device='cuda')
+    before = cg_kernel.pcg_solve_kernel.launches
+    got = cg_kernel.pcg_solve_kernel(M, b, x0, steps)
+    torch.cuda.synchronize()
+    assert cg_kernel.pcg_solve_kernel.launches == before + 1
+    torch.testing.assert_close(got, cg_kernel.pcg_solve_ref(M, b, x0, steps),
+                               **K2_TOL)
+    if steps == 0:
+        assert torch.equal(got, x0)
+
+
+@pytest.mark.parametrize('kind', ['b0', 'solved', 'identity', 'asym'])
+@pytest.mark.parametrize('k', [20, 64, 256])
+def test_pcg_kernel_guards_and_asymmetric(cuda, kind, k):
+    import chip_smoke
+    from mfrec_tpu_torch.ops import cg_kernel
+    M, b, x0 = chip_smoke.pcg_systems(37, k, kind, seed=3, device='cuda')
+    if kind == 'asym':
+        assert float((M - M.transpose(1, 2)).abs().max()) > 0
+    got = cg_kernel.pcg_solve_kernel(M, b, x0, 5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, cg_kernel.pcg_solve_ref(M, b, x0, 5),
+                               **K2_TOL)
+    if kind == 'solved':
+        assert torch.equal(got, x0)
+
+
+def test_als_products_are_full_f32(cuda):
+    '''With TF32 switched on process-wide, the ALS path's f32 products
+    (the Gram HHreg, the bucket Gram, the plain loop's mat-vec) still
+    agree with a float64 product to f32 accuracy; TF32 keeps about three
+    decimal digits.'''
+    import chip_smoke
+    from mfrec_tpu_torch.ops import als
+    prev = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rng = np.random.default_rng(6)
+        F = torch.from_numpy(rng.normal(0, 0.3, (5000, 64)).astype(
+            np.float32)).to(cuda)
+        HH = als._hh(F, 0.015)
+        want = F.double().T @ F.double() + 0.015 * torch.eye(
+            64, dtype=torch.float64, device=cuda)
+        torch.testing.assert_close(HH.double(), want, atol=1e-4, rtol=1e-5)
+        M, b, x0 = chip_smoke.pcg_systems(64, 64, 'asym', seed=2,
+                                          device='cuda')
+        x = als.pcg_solve(M, b, x0, 3)
+        assert torch.get_float32_matmul_precision() == 'high'
+        ref = als.pcg_solve(M.double(), b.double(), x0.double(), 3)
+        torch.testing.assert_close(x.double(), ref, atol=1e-5, rtol=1e-4)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def test_cuda_wrmf_trains_through_k2(cuda):
+    '''solver='cg' on CUDA: every bucket's solve is one K2 launch, and the
+    model lands where the same model on the CPU (the plain loop) does;
+    the exact solver on CUDA against the CPU too.'''
+    import chip_smoke
+    from mfrec_tpu_torch.models.wrmf import WRMFRecommender
+    from mfrec_tpu_torch.ops import cg_kernel
+    u, i, _, _ = chip_smoke.make_implicit_data(900, 300, 40000, seed=2)
+    ones = np.ones(u.shape[0], np.float32)
+    # two epochs (6 PCG steps, then 3): the ALS iteration is chaotic over
+    # many epochs, so longer runs are compared by objective, not factors
+    for params in ({'solver': 'cg', 'cg_steps': 6, 'cg_warm_steps': 3,
+                    'cg_warmup_epochs': 1, 'nbr_epochs': 2},
+                   {'solver': 'exact', 'nbr_epochs': 1}):
+        out = {}
+        for dev in ('cuda', 'cpu'):
+            m = WRMFRecommender(900, 300, dict(params, nbr_features=32),
+                                device=dev)
+            m.seed(1)
+            m.set_ratings(u, i, ones)
+            before = cg_kernel.pcg_solve_kernel.launches
+            m.train()
+            n = len(m.ratings.padded_rows(axis='user')) + \
+                len(m.ratings.padded_rows(axis='item'))
+            want = n * params['nbr_epochs'] \
+                if dev == 'cuda' and params['solver'] == 'cg' else 0
+            assert cg_kernel.pcg_solve_kernel.launches == before + want
+            out[dev] = m.P @ m.Q.T
+        rms = float(np.sqrt(((out['cuda'] - out['cpu']) ** 2).mean()))
+        assert rms < 1e-3, (params['solver'], rms)

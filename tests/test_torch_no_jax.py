@@ -23,7 +23,9 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.ops._cuda_build',
            'mfrec_tpu_torch.ops.similarity', 'mfrec_tpu_torch.models.base',
            'mfrec_tpu_torch.models.mf', 'mfrec_tpu_torch.models.gd',
-           'mfrec_tpu_torch.serving.server', 'mfrec_tpu_torch.interop']
+           'mfrec_tpu_torch.serving.server', 'mfrec_tpu_torch.interop',
+           'mfrec_tpu_torch.ops.als', 'mfrec_tpu_torch.ops.cg_kernel',
+           'mfrec_tpu_torch.models.wrmf', 'mfrec_tpu_torch.eval.metrics']
 
 
 def _env():
