@@ -5,6 +5,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py               # every phase, one card
     python3 chip_smoke.py --phases 12   # toolchain + kernel checks only
     python3 chip_smoke.py --phases 125  # ... and the ALS slice
+    python3 chip_smoke.py --phases 1267 # ... and the SVD++ and FN slice
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -13,7 +14,10 @@ Phase 2  each kernel against its plain PyTorch version on the card:
          K3 at the serving and retrieval-bench shapes plus edge shapes;
          K1 on real batches of the ML-10M-shape layouts (B=16384, W=128,
          k=66, T=128), on edge cases and on a whole half-pass at a
-         reduced size.  Median times of kernel and plain version.
+         reduced size; K4 at the JAX call's shape on real ML-10M-layout
+         batches (B=16384, W=128, k=66), at the SVD++/FN item-step shape
+         (W=512), on a whole W=512 layout (the phase aggregation) and on
+         edge cases.  Median times of kernel and plain version.
 Phase 3  the serving slice end to end at the ML-10M shape (69,878 users x
          10,677 items, rank 64): model -> checkpoint -> reload ->
          ``RecommenderServer`` ('xla' then 'fast' retrieval) answering
@@ -35,6 +39,18 @@ Phase 5  the WRMF/ALS slice end to end at bench_als's shape (69,878 x
          exact solver, the split of each half-sweep, and a CUDA model's
          CG epoch against a CPU model's.  Phase 2 also holds K2 to its
          plain version on edge cases.
+Phase 6  the SVD++ tier end to end at the ML-10M shape:
+         ``GDRecommender.feature_training_implicit()`` through K1 and K4
+         (W=512, batch 16384, T=32, f32 fixed side), timed as phase 4
+         is, every epoch's RMSE against the bias-only floor, K1's and
+         K4's launch counts, one epoch split by phase (CUDA events) with
+         the device busy share (torch.profiler), the epoch on the card
+         against the same epoch on CPU tensors at 3,000 x 700, and the
+         agg-only tier (K4 per batch and sweep) there too.
+Phase 7  the FN tier the same way: ``FNRecommender.train()`` at
+         bench.py's operating point (T=64), then retrieval through K3
+         from the materialized profiles against the plain version, and
+         one ``add_user`` fold-in.
 
 Any failure exits non-zero.  On success the line before the last is the
 kernels' JSON summary and the last line is
@@ -81,6 +97,20 @@ ALS = dict(U=69_878, I=10_677, N=23_000_000)
 ALS_PARAMS = {'nbr_features': 64, 'feature_init': 0.1,
               'regularization_model': 0.015, 'solver': 'cg', 'cg_steps': 6,
               'cg_warm_steps': 3, 'cg_warmup_epochs': 2}
+# K4 against its plain version: counts exactly; sums over the same bf16
+# rows, in f32 in another order
+K4_ATOL = 1e-5
+K4_RTOL = 1e-5
+# phase 6: phase 4's model settings, the SVD++ tier's defaults otherwise
+# (W=512, batch 16384, T=32, lr 0.15); phase 7: bench.py's FN operating
+# point (bench.py:619, 633-646) at the model's defaults (W=512, T=64)
+SVDPP_PARAMS = {'nbr_features': 64, 'feature_init': 0.05,
+                'regularization_model': 0.02, 'min_improvement': -1.0}
+FN_PARAMS = {'nbr_features': 64, 'feature_init': 0.05, 'learning_rate': 0.15,
+             'learning_rate_users': 0.05, 'learning_rate_items': 0.05,
+             'regularization_users': 0.02, 'regularization_items': 0.02,
+             'regularization_bias': 0.02, 'min_improvement': -1.0}
+REDUCED = (3000, 700, 60_000)
 
 
 def log(*a):
@@ -126,7 +156,7 @@ def timed_ms(fn, iters):
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
-        half_pass_kernel, topn_kernel
+        half_pass_kernel, topn_kernel, window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -134,13 +164,13 @@ def phase1():
     log('nvcc: %s' % nv.strip().splitlines()[-1])
     log('card: %s' % card_line())
     t0 = time.perf_counter()
-    _cuda_build.build(['topn', 'half_pass', 'pcg'])
-    topn_kernel._library()
-    half_pass_kernel._library()
-    cg_kernel._library()
-    log('built csrc/topn.cu, csrc/half_pass.cu and csrc/pcg.cu in %.1f s'
-        % (time.perf_counter() - t0))
-    for name in ('topn', 'half_pass', 'pcg'):
+    names = ('topn', 'half_pass', 'pcg', 'window_agg')
+    _cuda_build.build(names)
+    for mod in (topn_kernel, half_pass_kernel, cg_kernel, window_agg_kernel):
+        mod._library()
+    log('built %s in %.1f s' % (', '.join('csrc/%s.cu' % x for x in names),
+                                time.perf_counter() - t0))
+    for name in names:
         log(_cuda_build.build_log(name) or '')
 
 
@@ -202,7 +232,8 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
 
 
 def phase2():
-    return phase2_topn(), phase2_half_pass(), phase2_pcg()
+    return (phase2_topn(), phase2_half_pass(), phase2_pcg(),
+            phase2_window_agg())
 
 
 def phase2_topn():
@@ -272,6 +303,21 @@ def _unique(u, i, v, U, I):
     store = Ratings(U, I)
     store.set_many(u, i, v)
     return store.coo()
+
+
+@functools.lru_cache(maxsize=None)
+def unique_stream(U, I, nnz):
+    '''``ratings_stream`` without duplicate pairs (the store's COO).'''
+    return _unique(*ratings_stream(U, I, nnz), U, I)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_layout(U, I, nnz, axis, W, B=16384):
+    '''The ``sorted_pass_layout`` of ``unique_stream`` (cached: phase 2's
+    kernels share them).'''
+    from mfrec_tpu_torch.ops import sgd_mf
+    u, i, v = unique_stream(U, I, nnz)
+    return sgd_mf.sorted_pass_layout(u, i, v, B, axis=axis, max_window=W)
 
 
 def _aug_factors(U, I, K, W, seed):
@@ -431,9 +477,8 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
     B, W, K = 16384, 128, 64
     kw = dict(T=T, device=device)
     t0 = time.perf_counter()
-    u, i, v = _unique(*ratings_stream(U, I, nnz), U, I)
-    lay = {a: sgd_mf.sorted_pass_layout(u, i, v, B, axis=a, max_window=W)
-           for a in ('user', 'item')}
+    _, i, v = unique_stream(U, I, nnz)
+    lay = {a: stream_layout(U, I, nnz, a, W, B) for a in ('user', 'item')}
     Paug, Qaug = _aug_factors(U, I, K, W, seed=1)
     side = {'user': (Paug, Qaug), 'item': (Qaug, Paug)}
     log('  main-path layouts: %d ratings, %d user and %d item batches '
@@ -711,7 +756,6 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     regularization 0.02, epochs pinned by min=max, everything else at
     the shipped defaults (engine auto, batch 16384, T=128, W=128,
     lr 0.15).'''
-    import torch
     from mfrec_tpu_torch.models.gd import GDRecommender
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
@@ -733,37 +777,18 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
                                m.inner_steps, floor,
                                time.perf_counter() - t0))
 
-    def sync():
-        if device == 'cuda':
-            torch.cuda.synchronize()
-
-    def train_timed(epochs):
+    def train(epochs):
         m.min_epochs = m.max_epochs = epochs
-        sync()
-        t = time.perf_counter()
         m.train(handle_bias=True)
-        sync()
-        return time.perf_counter() - t, [float(x) for x in m.rmse_history]
 
-    t_warm, h1 = train_timed(1)      # builds the layouts + segment tables
-    half_pass.launches = 0           # from here on: the main path only
-    topn_scores_kernel.launches = 0
-    # the epoch as bench.py takes it: the median over 3 blocks of the
-    # difference quotient of a 2- and a 5-epoch run (one pair is noisy:
-    # it is a host clock around two whole train() calls)
-    marg, hist = [], list(h1)
-    for _ in range(3):
-        t2, h2 = train_timed(2)
-        t5, h5 = train_timed(5)
-        marg.append((t5 - t2) / 3.0)
-        hist += h2 + h5
-        log('  2 epochs %.3f s, 5 epochs %.3f s: epoch %.4f s  [%s]'
-            % (t2, t5, marg[-1], card))
+    res = epochs_timed(train, lambda: m.rmse_history, card, device)
     k1_launches = half_pass.launches
-    epoch_s = float(np.median(marg))
+    epoch_s, marg, hist, h5 = (res['epoch_s'], res['epoch_s_blocks'],
+                               res['hist'], res['rmse'])
     T = int(m.inner_steps)
     updates = n * K * T / epoch_s
-    log('  warm-up 1 epoch %.2f s (rmse %.4f)' % (t_warm, h1[0]))
+    log('  warm-up 1 epoch %.2f s (rmse %.4f)' % (res['warmup_s'],
+                                                  res['warmup_rmse']))
     log('  rmse per epoch (last 5-epoch run): %s' % ' '.join(
         '%.4f' % x for x in h5))
     log('  epoch %.4f s (median of 3), %.4g updates/s (nnz*K*T/epoch_s), '
@@ -788,7 +813,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
         raise SystemExit('retrieval from the trained model never launched K3')
     return dict(k1_launches=k1_launches, k3_launches=k3_launches,
                 epoch_s=epoch_s, epoch_s_blocks=marg, updates_per_s=updates,
-                rmse=h5, floor=floor, warmup_s=t_warm)
+                rmse=h5, floor=floor, warmup_s=res['warmup_s'])
 
 
 def pcg_bound(R, k, steps):
@@ -936,6 +961,217 @@ def phase2_pcg(device='cuda'):
     if bad:
         raise SystemExit('phase 2 (K2) failed: %s' % bad)
     return recs
+
+
+def k4_call_bound(n_in, B, k, W):
+    '''K4's least time for one call: the masked-in rows of g read once,
+    kl and mask read once, gsum and cnt written once, over the memory
+    rate, against its n_in*k adds over the FP32 peak.'''
+    return roofline_ms(float(n_in) * k,
+                       4.0 * n_in * k + 8.0 * B + 4.0 * W * (k + 1))
+
+
+def k4_scan_bound(seg, k):
+    '''K4's least time for a whole phase: the rows read once, the
+    segment table once, each touched target row read and written once.'''
+    n = int(seg.ent_r.numel())
+    nb = int(seg.blk_row.numel())
+    ns = int(seg.seg_cnt.numel())
+    return roofline_ms(float(n) * k,
+                       4.0 * n * k + 4.0 * (ns + 1) + 12.0 * nb + 8.0 * k * nb)
+
+
+def _k4_ok(got, want, exact):
+    '''K4 against its plain version ``want``: every element within
+    K4_ATOL + K4_RTOL*|want|, or -- where a long sum cancels, so that two
+    f32 orders of the same bf16 rows land further apart than that -- at
+    most twice as far from ``exact`` (the float64 sum of the same bf16
+    rows) as the plain version is.  Returns (ok, max abs err vs the plain
+    version, that of the kernel and of the plain version vs float64).'''
+    import torch
+    if not got.numel():
+        return True, 0.0, 0.0, 0.0
+    diff = (got - want).abs()
+    err = float(diff.max())
+    k64 = float((got.double() - exact).abs().max())
+    p64 = float((want.double() - exact).abs().max())
+    within = bool((diff <= K4_ATOL + K4_RTOL * want.abs()).all())
+    ok = bool(torch.isfinite(got).all()) and (within or k64 <= 2.0 * p64)
+    return ok, err, k64, p64
+
+
+def k4_case(name, g, kl, m, W, iters=0, plain_iters=0):
+    '''K4's per-call entry against its plain version on the same inputs
+    (counts exactly, sums within K4_ATOL/K4_RTOL, a second launch
+    bit-identical); with ``iters`` the kernel, the plain version, one
+    ``index_add_`` of the pre-rounded rows (the library yardstick) and
+    the bound.'''
+    import torch
+    from mfrec_tpu_torch.ops.window_agg_kernel import (window_aggregate,
+                                                       window_aggregate_ref)
+    gs, cnt = window_aggregate(g, kl, m, W)
+    if g.is_cuda:
+        torch.cuda.synchronize()
+    rs, rc = window_aggregate_ref(g, kl, m, W)
+    keep = m > 0
+    exact = torch.zeros(gs.shape, dtype=torch.float64, device=g.device)
+    exact.index_add_(0, kl[keep].long(),
+                     g[keep].to(torch.bfloat16).double())
+    ok, err, k64, p64 = _k4_ok(gs, rs, exact)
+    again, _ = window_aggregate(g, kl, m, W, check_ids=False)
+    ok = ok and torch.equal(cnt, rc) and torch.equal(again, gs)
+    B, k = g.shape
+    n_in = int(keep.sum())
+    rec = {'case': name, 'B': B, 'W': W, 'k': k, 'rows_in': n_in, 'ok': ok,
+           'max_abs_err': err, 'kernel_err_f64': k64, 'plain_err_f64': p64}
+    if iters:
+        rec['ms'] = timed_ms(lambda: window_aggregate(g, kl, m, W,
+                                                      check_ids=False), iters)
+        rec['plain_ms'] = timed_ms(
+            lambda: window_aggregate_ref(g, kl, m, W), plain_iters or iters)
+        idx, g16 = kl[keep].long(), g[keep].to(torch.bfloat16).float()
+        out = torch.zeros((W, k), dtype=torch.float32, device=g.device)
+        rec['library_ms'] = timed_ms(lambda: out.index_add_(0, idx, g16),
+                                     iters)
+        rec['bound_ms'], rec['bound_by'] = k4_call_bound(n_in, B, k, W)
+    times = ' kernel %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound %.4f ' \
+        'ms' % (rec['ms'], rec['plain_ms'], rec['library_ms'],
+                rec['bound_ms']) if iters else ''
+    log('  %-44s ok=%s max_abs_err=%.3g (float64: kernel %.3g, plain %.3g;'
+        ' %d of %d rows in)%s' % (name, ok, err, k64, p64, n_in, B, times))
+    return rec
+
+
+def k4_scan_case(name, seg, k, rows, seed, iters=0, plain_iters=0,
+                 mean=False):
+    '''K4's phase entry (``scan_aggregate``) over segment table ``seg``
+    against its plain version, from a random target and random rows;
+    with ``iters`` its times (``index_add_`` of the pre-rounded rows into
+    their target rows is the library yardstick) and the bound.'''
+    import torch
+    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       scan_aggregate_ref)
+    dev = seg.ent_r.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = int(seg.ent_r.shape[0])
+    vals = torch.randn((n, k), generator=gen, device=dev)
+    t0 = torch.randn((rows, k), generator=gen, device=dev)
+    got = scan_aggregate(t0.clone(), vals, seg, mean)
+    if vals.is_cuda:
+        torch.cuda.synchronize()
+    want = scan_aggregate_ref(t0.clone(), vals, seg, mean)
+    exact = scan_aggregate_ref(t0.double(), vals, seg, mean)
+    ok, err, k64, p64 = _k4_ok(got, want, exact)
+    rec = {'case': name, 'k': k, 'entries': n,
+           'rows': int(seg.blk_row.numel()), 'longest_row': seg.longest,
+           'ok': ok, 'max_abs_err': err, 'kernel_err_f64': k64,
+           'plain_err_f64': p64}
+    del got, want, exact
+    if iters:
+        tk = t0.clone()
+        rec['ms'] = timed_ms(lambda: scan_aggregate(tk, vals, seg, mean),
+                             iters)
+        rec['plain_ms'] = timed_ms(
+            lambda: scan_aggregate_ref(tk, vals, seg, mean),
+            plain_iters or iters)
+        idx, v16 = seg.ent_row.long(), vals.to(torch.bfloat16).float()
+        rec['library_ms'] = timed_ms(lambda: tk.index_add_(0, idx, v16),
+                                     iters)
+        rec['bound_ms'], rec['bound_by'] = k4_scan_bound(seg, k)
+        del idx, v16, tk
+    log('  %-44s ok=%s max_abs_err=%.3g (float64: kernel %.3g, plain %.3g;'
+        ' %d rows in %d target rows, longest %d)%s'
+        % (name, ok, err, k64, p64, n, rec['rows'], seg.longest,
+                   ' kernel %.3f ms, plain %.3f ms, index_add_ %.3f ms, bound '
+                   '%.3f ms' % (rec['ms'], rec['plain_ms'], rec['library_ms'],
+                                rec['bound_ms']) if iters else ''))
+    return rec
+
+
+def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
+                      device='cuda'):
+    '''K4 against its plain version: the per-call entry at the JAX
+    call's shape on real ML-10M-layout batches (B=16384, W=128, k=66: a
+    user batch and the item batch with the longest run), at the SVD++ and
+    FN item-step shapes (W=512, k=64 and the FN's two-in-one k=128), and
+    on edge cases; the phase entry on the whole W=512 user layout (the
+    SVD++/FN aggregation phases, k=64) and item layout (its hot rows).'''
+    import torch
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    log('phase 2: K4 against its plain version (counts exact, sums atol %g '
+        'rtol %g, or where a long sum cancels at most twice as far from the '
+        'float64 sum as the plain version)' % (K4_ATOL, K4_RTOL))
+    card = card_line()
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    lay = {(a, W): stream_layout(U, I, nnz, a, W) for a in ('user', 'item')
+           for W in (128, 512)}
+    log('  ML-10M-shape layouts at W=128 and 512 (%.1f s)'
+        % (time.perf_counter() - t0))
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def call(name, layout, b, k, W):
+        g = rng.normal(0, 1, (layout[4].shape[1], k)).astype(np.float32)
+        return k4_case(name, t(g), t(layout[4][b]), t(layout[3][b]), W,
+                       iters=50, plain_iters=10)
+
+    hb, hn = _longest_run_batch(lay['item', 128])
+    recs = [call('JAX call: user batch 0 (W=128, k=66)', lay['user', 128],
+                 0, 66, 128),
+            call('JAX call: item batch %d, run %d (W=128, k=66)' % (hb, hn),
+                 lay['item', 128], hb, 66, 128),
+            call('Y step: item batch 0 (W=512, k=64)', lay['item', 512], 0,
+                 64, 512),
+            call('X/Y step: item batch 0 (W=512, k=128)', lay['item', 512],
+                 0, 128, 512)]
+
+    def edge(name, B, k, W, kind):
+        g = rng.normal(0, 1, (B, k)).astype(np.float32)
+        kl = np.sort(rng.integers(0, W, B)).astype(np.int32)
+        m = np.ones(B, np.float32)
+        if kind == 'masked':
+            m[:] = 0.0
+        elif kind == 'one id':
+            kl[:] = W // 3
+        elif kind == 'unsorted':
+            rng.shuffle(kl)
+            m = (rng.random(B) > 0.2).astype(np.float32)
+        return k4_case(name, t(g), t(kl), t(m), W)
+
+    recs += [edge('edge everything masked', 16384, 66, 128, 'masked'),
+             edge('edge W=1', 5000, 66, 1, 'sorted'),
+             edge('edge k=1', 16384, 1, 128, 'sorted'),
+             edge('edge k=256', 8192, 256, 512, 'sorted'),
+             edge('edge every row on one id', 16384, 66, 128, 'one id'),
+             edge('edge unsorted ids, k=130', 3001, 130, 512, 'unsorted'),
+             edge('edge B=0', 0, 64, 128, 'sorted')]
+    scans = []
+    for axis, iters in (('user', 10), ('item', 3)):
+        L = lay[axis, 512]
+        fix = L[1] if axis == 'user' else L[0]
+        seg = hk.build_segments(fix, L[2], L[3], L[4], L[5], 512, dev)
+        rows = (U if axis == 'user' else I) + 512
+        scans.append(k4_scan_case('phase: whole %s layout (W=512, k=64)'
+                                  % axis, seg, 64, rows, seed=len(scans),
+                                  iters=iters, plain_iters=2))
+        del seg
+    L = stream_layout(*REDUCED, 'user', 512)
+    seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
+    scans.append(k4_scan_case('phase mean=True: reduced user layout', seg,
+                              66, REDUCED[0] + 512, seed=5, mean=True))
+    for r in recs + scans:
+        if 'ms' in r:
+            log('  time %-44s kernel %.4f ms, plain %.4f ms, index_add_ '
+                '%.4f ms, bound %.4f ms (%s)  [%s]'
+                % (r['case'], r['ms'], r['plain_ms'], r['library_ms'],
+                   r['bound_ms'], r['bound_by'], card))
+    bad = [r['case'] for r in recs + scans if not r['ok']]
+    if bad:
+        raise SystemExit('phase 2 (K4) failed: %s' % bad)
+    return {'recs': recs, 'scans': scans}
 
 
 def make_implicit_data(U, I, N, seed=0, clusters=32, heldout_per_user=3):
@@ -1325,6 +1561,345 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
                 exact_ms=exact_ms, split=split, per_epoch=per_epoch)
 
 
+def k4_launches():
+    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       window_aggregate)
+    return scan_aggregate.launches + window_aggregate.launches
+
+
+def zero_launch_counts():
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       window_aggregate)
+    for fn in (half_pass, topn_scores_kernel, scan_aggregate,
+               window_aggregate):
+        fn.launches = 0
+
+
+def epochs_timed(train, history, card, device):
+    '''The timing of phases 4, 6 and 7 through the public
+    ``train(epochs)``: a 1-epoch warm-up (layouts and segment tables),
+    the launch counts set to 0,
+    then 3 blocks of a 2- and a 5-epoch run; the epoch is the median of
+    their difference quotients.'''
+    import torch
+
+    def timed(epochs):
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        train(epochs)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        return time.perf_counter() - t, [float(x) for x in history()]
+
+    t_warm, h1 = timed(1)
+    zero_launch_counts()             # from here on: the main path only
+    marg, hist = [], list(h1)
+    for _ in range(3):
+        t2, h2 = timed(2)
+        t5, h5 = timed(5)
+        marg.append((t5 - t2) / 3.0)
+        hist += h2 + h5
+        log('  2 epochs %.3f s, 5 epochs %.3f s: epoch %.4f s  [%s]'
+            % (t2, t5, marg[-1], card))
+    return dict(epoch_s=float(np.median(marg)), epoch_s_blocks=marg,
+                hist=hist, rmse=h5, warmup_s=t_warm, warmup_rmse=h1[0])
+
+
+def tier_split(epoch, state, args, device):
+    '''One epoch of a tier on the card, split by phase: the CUDA-event
+    time from one phase's end to the next's (the epoch's ``on_phase``
+    hook marks them) beside the host time to enqueue it, then one more
+    epoch under torch.profiler for the kernels' busy time by kernel (K1
+    ``half_pass_rows``, K4 ``window_agg_kernel``/``scan_agg_kernel``,
+    the rest) and the device idle share (1 - busy / host time).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if device != 'cuda':
+        return {}
+    state = tuple(x.clone() for x in state)
+    epoch(*state, *args)                        # warm the allocator
+    torch.cuda.synchronize()
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e, time.perf_counter()))
+
+    mark('start')
+    epoch(*state, *args, on_phase=mark)
+    torch.cuda.synchronize()
+    phases = {}
+    for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
+        phases[name] = {'device_ms': e0.elapsed_time(e1),
+                        'host_ms': 1e3 * (h1 - h0)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        epoch(*state, *args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    busy = {'k1': 0.0, 'k4': 0.0, 'other': 0.0}
+    for e in prof.key_averages():
+        if not str(getattr(e, 'device_type', '')).endswith('CUDA'):
+            continue
+        ms = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
+        key = 'k1' if 'half_pass_rows' in e.key else 'k4' if (
+            'window_agg_kernel' in e.key or 'scan_agg_kernel' in e.key) \
+            else 'other'
+        busy[key] += ms
+    total = sum(busy.values())
+    return {'phases': phases,
+            'epoch_event_ms': sum(p['device_ms'] for p in phases.values()),
+            'epoch_wall_ms': wall, 'busy_ms': busy, 'busy_total_ms': total,
+            'idle': (1.0 - total / wall) if total > 0 else None}
+
+
+def log_split(split, card):
+    if not split:
+        return
+    for name, p in split['phases'].items():
+        log('  %-17s %9.3f ms on the card, %9.3f ms to enqueue  [%s]'
+            % (name, p['device_ms'], p['host_ms'], card))
+    b = split['busy_ms']
+    log('  one epoch: %.3f ms by CUDA events, %.3f ms on the host clock; '
+        'kernels busy %.3f ms (K1 %.3f, K4 %.3f, other %.3f) by '
+        'torch.profiler: device idle %s  [%s]'
+        % (split['epoch_event_ms'], split['epoch_wall_ms'],
+           split['busy_total_ms'], b['k1'], b['k4'], b['other'],
+           'not measured' if split['idle'] is None
+           else '%.1f %%' % (100 * split['idle']), card))
+
+
+def reduced_model(cls, params, device, reduced=REDUCED):
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    ru, ri, rn = reduced
+    m = cls(ru, ri, params, device=device)
+    m.seed(5)
+    m.set_ratings(*synthetic_ratings(ru, ri, rn, rank=16, seed=1))
+    return m
+
+
+def tier_card_vs_cpu(kind, params, reduced=REDUCED):
+    '''A CUDA model's tier epoch against the same epoch on CPU tensors
+    (K1's and K4's plain versions), from the state a CPU model reaches in
+    one public-path epoch at a reduced shape, within K1's tolerances;
+    with the launches the CUDA epoch made.'''
+    from mfrec_tpu_torch.models.fn import FNRecommender
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    cls = GDRecommender if kind == 'svdpp' else FNRecommender
+    one = {'min_epochs': 1, 'max_epochs': 1} if kind == 'svdpp' \
+        else {'nbr_epochs': 1}
+    first = reduced_model(cls, dict(params, **one), 'cpu', reduced)
+    if kind == 'svdpp':
+        first.feature_training_implicit()
+    else:
+        first.train()
+    out = {}
+    for d in ('cuda', 'cpu'):
+        m = reduced_model(cls, params, d, reduced)
+        m.compute_overall_avg()
+        for name in ('P', 'Q', 'Y', 'X', 'users_bias', 'items_bias'):
+            setattr(m, name, getattr(first, name, None))
+        if kind == 'svdpp':
+            epoch, state, args = m._implicit_epoch(use_kernel=True)
+        else:
+            epoch, state, args = m._fn_epoch(m._init_or_resume(False),
+                                             use_kernel=True)
+        before = (half_pass.launches, k4_launches())
+        *state, rmse = epoch(*state, *args)
+        out[d] = ([x.cpu() for x in state], float(rmse),
+                  (half_pass.launches - before[0],
+                   k4_launches() - before[1]))
+    errs = [float((a - b).abs().max()) for a, b in zip(out['cuda'][0],
+                                                       out['cpu'][0])]
+    ok = all(bool((a - b).abs().le(K1_ATOL + K1_RTOL * b.abs()).all())
+             for a, b in zip(out['cuda'][0], out['cpu'][0]))
+    ok = ok and abs(out['cuda'][1] - out['cpu'][1]) <= \
+        1e-3 * abs(out['cpu'][1])
+    log('  one %s epoch at %d x %d: card vs CPU tensors ok=%s, max abs '
+        'err %s, rmse %.5f vs %.5f, K1 %d and K4 %d launches'
+        % (kind, reduced[0], reduced[1], ok,
+           ' '.join('%.3g' % e for e in errs), out['cuda'][1], out['cpu'][1],
+           *out['cuda'][2]))
+    if not ok:
+        raise SystemExit('the %s epoch on the card disagrees with the same '
+                         'epoch on CPU tensors' % kind)
+    return {'ok': ok, 'max_abs_err': max(errs), 'launches': out['cuda'][2]}
+
+
+def agg_tier_check(reduced=REDUCED, T=4):
+    '''The agg-only tier (``use_agg_kernel``: the plain sweep with K4
+    per batch and sweep) at a reduced shape: one epoch on the card
+    against the same epoch on CPU tensors (K4's plain version), and K4's
+    launches, which must be batches x T per half-pass.'''
+    import torch
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops.window_agg_kernel import window_aggregate
+    ru, ri, rn = reduced
+    W = 128
+    lay = {a: stream_layout(ru, ri, rn, a, W) for a in ('user', 'item')}
+    Pa, Qa = _aug_factors(ru, ri, 64, W, seed=4)
+    mu = float(np.mean(unique_stream(ru, ri, rn)[2]))
+    out = {}
+    for d in ('cuda', 'cpu'):
+        pl_, ql_ = (sgd_mf.PassLayout(lay[a], a, d) for a in ('user', 'item'))
+        ep = sgd_mf.make_alternating_epoch(
+            W, W, 0.15, 0.02, lr_bu=0.15, lr_bi=0.15, K_bu=0.01, K_bi=0.01,
+            bias_mode='learned', inner_steps=T, use_agg_kernel=True)
+        window_aggregate.launches = 0
+        P, Q, rmse = ep(torch.from_numpy(Pa.copy()).to(d),
+                        torch.from_numpy(Qa.copy()).to(d), mu, pl_, ql_)
+        out[d] = (P.cpu(), Q.cpu(), float(rmse), window_aggregate.launches,
+                  T * (pl_.nbr_batches + ql_.nbr_batches))
+    err = max(float((a - b).abs().max()) for a, b in zip(out['cuda'][:2],
+                                                         out['cpu'][:2]))
+    launches, want = out['cuda'][3:]
+    ok = err <= EXACT_ATOL and launches == want and \
+        abs(out['cuda'][2] - out['cpu'][2]) <= 1e-5 * out['cpu'][2]
+    log('  agg-only tier at %d x %d, T=%d: card vs CPU tensors max abs err '
+        '%.3g (limit %g), rmse %.6f vs %.6f, K4 launches %d (batches x T: '
+        '%d)' % (ru, ri, T, err, EXACT_ATOL, out['cuda'][2], out['cpu'][2],
+                 launches, want))
+    if not ok:
+        raise SystemExit('the agg-only tier on the card disagrees with the '
+                         'plain epoch, or K4 launched %d times, not %d'
+                         % (launches, want))
+    return {'max_abs_err': err, 'launches': launches}
+
+
+def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
+           reduced=REDUCED):
+    '''The SVD++ slice through the public path:
+    ``GDRecommender.feature_training_implicit()`` at phase 4's model
+    settings and the tier's defaults, timed as phase 4 is, its launch
+    counts, an epoch split by phase, the card against CPU tensors at a
+    reduced shape, and the agg-only tier.'''
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       window_aggregate)
+    card = card_line()
+    t0 = time.perf_counter()
+    m = GDRecommender(U, I, SVDPP_PARAMS, device=device)
+    m.seed(0)
+    m.set_ratings(*ratings_stream(U, I, nnz))
+    floor = bias_floor_rmse(*m.ratings.coo(), U, I)
+    log('phase 6: GDRecommender(%d, %d, rank %d).feature_training_implicit() '
+        'on %s, %d ratings, batch %d, W=512, T=%d, f32 fixed side; bias-only '
+        'floor %.4f (%.1f s to build)'
+        % (U, I, m.dimensionality, device, m.ratings.nnz, m.batch_size,
+           m.inner_steps_implicit, floor, time.perf_counter() - t0))
+
+    def train(epochs):
+        m.min_epochs = m.max_epochs = epochs
+        m.feature_training_implicit()
+
+    res = epochs_timed(train, lambda: m.rmse_history, card, device)
+    res.update(k1_launches=half_pass.launches,
+               k4_scan_launches=scan_aggregate.launches,
+               k4_call_launches=window_aggregate.launches,
+               k4_launches=k4_launches(), floor=floor)
+    q_batches = m._alternating_layouts(512)[1].nbr_batches
+    check_tier_run('phase 6', res, device, q_batches, card)
+    epoch, state, args = m._implicit_epoch()
+    res['split'] = tier_split(epoch, state, args, device)
+    del epoch, state, args
+    log_split(res['split'], card)
+    if device == 'cuda':
+        res['card_vs_cpu'] = tier_card_vs_cpu('svdpp', SVDPP_PARAMS, reduced)
+        res['agg_tier'] = agg_tier_check(reduced)
+    return res
+
+
+def check_tier_run(name, res, device, q_batches, card):
+    '''The gates of phases 6 and 7: every epoch's train RMSE finite, the
+    last below the bias-only floor, and (on the card) K1 and K4 launched
+    as the 21 timed epochs need: 2 K1 and 2 phase-K4 launches per epoch,
+    one K4 call per item batch.'''
+    hist = res['hist']
+    log('  warm-up 1 epoch %.2f s (rmse %.4f); rmse per epoch (last 5-epoch '
+        'run): %s' % (res['warmup_s'], res['warmup_rmse'],
+                      ' '.join('%.4f' % x for x in res['rmse'])))
+    log('  epoch %.4f s (median of 3), final rmse %.4f vs floor %.4f; K1 '
+        'launches %d, K4 launches %d (%d whole-phase + %d per-batch; %d item '
+        'batches per epoch) over 21 epochs  [%s]'
+        % (res['epoch_s'], res['rmse'][-1], res['floor'], res['k1_launches'],
+           res['k4_launches'], res['k4_scan_launches'],
+           res['k4_call_launches'], q_batches, card))
+    if not all(np.isfinite(hist)):
+        raise SystemExit('%s: non-finite training RMSE: %s' % (name, hist))
+    if not res['rmse'][-1] < res['floor']:
+        raise SystemExit('%s: final RMSE %.4f does not beat the bias-only '
+                         'floor %.4f' % (name, res['rmse'][-1], res['floor']))
+    want = (42, 42, 21 * q_batches)
+    got = (res['k1_launches'], res['k4_scan_launches'],
+           res['k4_call_launches'])
+    if device == 'cuda' and got != want:
+        raise SystemExit('%s: K1/K4 launches %s, expected %s'
+                         % (name, got, want))
+
+
+def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
+           reduced=REDUCED):
+    '''The FN slice through the public path: ``FNRecommender.train()``
+    at bench.py's operating point, timed and gated as phase 6, then
+    retrieval from the materialized profiles through K3 and one fold-in.'''
+    from mfrec_tpu_torch.models.fn import FNRecommender
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       window_aggregate)
+    card = card_line()
+    t0 = time.perf_counter()
+    m = FNRecommender(U, I, FN_PARAMS, device=device)
+    m.seed(0)
+    m.set_ratings(*ratings_stream(U, I, nnz))
+    floor = bias_floor_rmse(*m.ratings.coo(), U, I)
+    log('phase 7: FNRecommender(%d, %d, rank %d).train() on %s, %d ratings, '
+        'batch %d, W=512, T=%d; bias-only floor %.4f (%.1f s to build)'
+        % (U, I, m.dimensionality, device, m.ratings.nnz, m.batch_size,
+           m.inner_steps, floor, time.perf_counter() - t0))
+
+    def train(epochs):
+        m.nbr_epochs = epochs
+        m.train()
+
+    res = epochs_timed(train, lambda: m.rmse_history, card, device)
+    res.update(k1_launches=half_pass.launches,
+               k4_scan_launches=scan_aggregate.launches,
+               k4_call_launches=window_aggregate.launches,
+               k4_launches=k4_launches(), floor=floor)
+    q_batches = m._alternating_layouts(512)[1].nbr_batches
+    check_tier_run('phase 7', res, device, q_batches, card)
+    epoch, state, args = m._fn_epoch(m._init_or_resume(False))
+    res['split'] = tier_split(epoch, state, args, device)
+    del epoch, state, args
+    log_split(res['split'], card)
+    # serving from the materialized profiles, through K3
+    users = np.random.default_rng(3).choice(U, 256, replace=False)
+    retrieval_vs_plain(m, users, ('predict_rating_with_bias',))
+    new_id = m.add_user('fold-in', [0, 7, 42], [5.0, 3.0, 4.0])
+    idx, scores = m.recommend_batch([new_id], 10,
+                                    predictor='predict_rating_with_bias')
+    if not (np.isfinite(m.P[new_id]).all() and np.isfinite(scores).all()
+            and not {0, 7, 42} & set(idx[0].tolist())):
+        raise SystemExit('the folded-in user is not served right')
+    res['k3_launches'] = topn_scores_kernel.launches
+    log('  add_user fold-in: user %d served %s; K3 launches %d during the '
+        'retrieval' % (new_id, idx[0].tolist(), res['k3_launches']))
+    if device == 'cuda' and res['k3_launches'] == 0:
+        raise SystemExit('retrieval from the FN model never launched K3')
+    if device == 'cuda':
+        res['card_vs_cpu'] = tier_card_vs_cpu('fn', FN_PARAMS, reduced)
+    return res
+
+
 def k3_bound(B, I, k):
     '''K3's least time at one shape: 2*B*I*k f32 FMA operations over the
     FP32 peak against P, Q, the biases and the result moved once.'''
@@ -1360,9 +1935,40 @@ def k2_entry(k2_recs, als):
         'epoch_s': als['epoch_s']}]
 
 
+def k4_entry(k4, svdpp, fn):
+    '''K4's entry of the kernels line: times at the JAX call's shape (a
+    real user batch), at the SVD++ item step's and on a whole W=512 user
+    layout; launches over phases 6 and 7's timed epochs.'''
+    if not k4:
+        return []
+    call, ystep, xystep = k4['recs'][0], k4['recs'][2], k4['recs'][3]
+    scan = k4['scans'][0]
+    runs = [r for r in (svdpp, fn) if r]
+    return [{
+        'name': 'window_agg (K4, sorted-window aggregation)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/window_agg.cu',
+        'replaces': 'mfrec_tpu/ops/pallas_window_agg.py:24',
+        'launches': sum(r['k4_launches'] for r in runs) if runs else None,
+        'max_abs_err': max(r['max_abs_err']
+                           for r in k4['recs'] + k4['scans']),
+        'ms': call['ms'], 'plain_ms': call['plain_ms'],
+        'bound_ms': call['bound_ms'], 'bound_by': call['bound_by'],
+        'library_ms': call['library_ms'],
+        'shape': 'one call on ML-10M user batch 0: B=16384 W=128 k=66',
+        'ms_y_step_call': ystep['ms'], 'bound_ms_y_step_call':
+            ystep['bound_ms'], 'ms_xy_step_call': xystep['ms'],
+        'ms_phase': scan['ms'], 'plain_ms_phase': scan['plain_ms'],
+        'bound_ms_phase': scan['bound_ms'],
+        'library_ms_phase': scan['library_ms'],
+        'launches_svdpp': svdpp.get('k4_launches'),
+        'launches_fn': fn.get('k4_launches'),
+        'epoch_s_svdpp': svdpp.get('epoch_s'),
+        'epoch_s_fn': fn.get('epoch_s')}]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
-    ap.add_argument('--phases', default='12345',
+    ap.add_argument('--phases', default='1234567',
                     help='which phases to run (default: all)')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, 'mfrec_tpu_torch')):
@@ -1376,11 +1982,13 @@ def main(argv=None):
         return 2
     if '1' in args.phases:
         phase1()
-    k3_recs, (k1_recs, k1_time), k2_recs = phase2() \
-        if '2' in args.phases else ([], ([], {}), [])
+    k3_recs, (k1_recs, k1_time), k2_recs, k4 = phase2() \
+        if '2' in args.phases else ([], ([], {}), [], {})
     launches, worst = phase3() if '3' in args.phases else (None, 0.0)
     train = phase4() if '4' in args.phases else {}
     als = phase5() if '5' in args.phases else {}
+    svdpp = phase6() if '6' in args.phases else {}
+    fn = phase7() if '7' in args.phases else {}
     if k3_recs:
         k3_ms, k3_by = k3_bound(1024, 360_000, 64)
         main1 = k1_recs[0]
@@ -1411,7 +2019,8 @@ def main(argv=None):
             'bound_ms_half_pass_user': k1_time['user']['bound_ms'],
             'bound_ms_half_pass_item': k1_time['item']['bound_ms'],
             'ms_longest_chain': k1_time['chain']['ms'],
-            'epoch_s': train.get('epoch_s')}] + k2_entry(k2_recs, als)}))
+            'epoch_s': train.get('epoch_s')}] + k2_entry(k2_recs, als)
+            + k4_entry(k4, svdpp, fn)}))
     log(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

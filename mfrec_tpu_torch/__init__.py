@@ -16,7 +16,11 @@ What is ported so far:
 * the WRMF/ALS slice: ``WRMFRecommender.train()`` on the single-device
   nnz-bucket half-sweeps, exact (batched Cholesky) or CG, whose PCG
   iterations are the hand-written CUDA kernel K2 on a GPU
-  (``csrc/pcg.cu``), and ``eval.metrics.precision_recall``.
+  (``csrc/pcg.cu``), and ``eval.metrics.precision_recall``;
+* the SVD++ and FN slice: ``GDRecommender.feature_training_implicit()``
+  and ``FNRecommender.train()`` on the sorted-window tiers, whose
+  aggregation phases are the hand-written CUDA kernel K4 on a GPU
+  (``csrc/window_agg.cu``) around K1's half-passes.
 
 Models take ``device='cuda'`` (default) or ``device='cpu'``.
 '''
@@ -27,9 +31,10 @@ from mfrec_tpu_torch.models.base import BaseRecommender, DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.models.gd import GDRecommender
 from mfrec_tpu_torch.models.wrmf import WRMFRecommender
+from mfrec_tpu_torch.models.fn import FNRecommender
 from mfrec_tpu_torch.serving import RecommenderServer
 from mfrec_tpu_torch import interop
 
 __all__ = ['BaseRecommender', 'DefaultRate', 'Error', 'MFRecommender',
-           'GDRecommender', 'WRMFRecommender', 'RecommenderServer',
-           'interop']
+           'GDRecommender', 'WRMFRecommender', 'FNRecommender',
+           'RecommenderServer', 'interop']

@@ -3,17 +3,20 @@ GDRecommender — Funk/BellKor SGD matrix factorization.
 
 Port of ``mfrec_tpu/models/gd.py``: the constructor with the reference
 parameter names and defaults (``PARAMETERS_INDEX``), training on the
-single-device sorted-window alternating engine, the predictors and
-``predict_batch``.
+single-device sorted-window alternating engine, the SVD++ tier, the
+predictors and ``predict_batch``.
 
 Training (``train``/``feature_training``, ``feature_training_bias``)
 runs ``ops.sgd_mf.make_alternating_epoch`` on the model's device: a CUDA
 model through the hand-written K1 kernel (``csrc/half_pass.cu``), a CPU
 model through the XLA branch's math in plain torch -- the counterpart of
-the JAX model's ``use_pallas_full = backend != 'cpu'``.  The factors stay
-on the device across epochs (one host sync per epoch, the RMSE the
-convergence rule reads) and come back as numpy at the end, so serving
-works on a model the port trained.
+the JAX model's ``use_pallas_full = backend != 'cpu'``.
+``feature_training_implicit`` (SVD++) runs
+``ops.sgd_mf.make_alternating_implicit_epoch`` the same way, its
+aggregation phases through K4 (``csrc/window_agg.cu``) on a CUDA model.
+The factors stay on the device across epochs (one host sync per epoch,
+the RMSE the convergence rule reads) and come back as numpy at the end,
+so serving works on a model the port trained.
 
 ``engine='auto'`` means ``'alternating'``: a port model lives on one
 explicit device, where the JAX model picks ``alternating_sharded`` when
@@ -39,6 +42,20 @@ _UNPORTED_ENGINES = {
     'alternating_sharded': 'queue 1 item 9 (multi-device engines)',
     'alternating_ring': 'queue 1 item 9 (multi-device engines)',
 }
+
+
+def _host(t, n):
+    '''The first ``n`` rows of a device tensor as a writable numpy array.'''
+    return np.array(t[:n].cpu().numpy())
+
+
+def _inv_sqrt_counts(counts, rows):
+    '''``|N(u)|^-1/2`` per user (0 for none), zero-padded to ``rows``.'''
+    counts = np.asarray(counts, np.float32)
+    nrm = np.zeros(rows, np.float32)
+    nrm[:counts.shape[0]] = np.where(
+        counts > 0, 1.0 / np.sqrt(np.maximum(counts, 1.0)), 0.0)
+    return nrm
 
 
 class GDRecommender(MFRecommender):
@@ -209,14 +226,7 @@ class GDRecommender(MFRecommender):
         driver, with ``lr_decay`` and ``lr_plateau_decay``.'''
         lr, lr_bu, lr_bi = self._alt_lrs()
         mw = min(128, max(self.nbr_users, self.nbr_items))
-        decay = float(self.lr_decay)
-        if not (0.0 < decay <= 1.0):
-            raise Error('lr_decay must be in (0, 1] (got %r)'
-                        % self.lr_decay)
-        plateau = float(self.lr_plateau_decay)
-        if not (0.0 < plateau <= 1.0):
-            raise Error('lr_plateau_decay must be in (0, 1] (got %r)'
-                        % self.lr_plateau_decay)
+        decay, plateau = self._lr_schedule()
         p_layout, q_layout, W_user, W_item = self._alternating_layouts(mw)
         state = self._state(with_bias=(bias_mode != 'none'))
         pad = torch.nn.functional.pad
@@ -230,7 +240,7 @@ class GDRecommender(MFRecommender):
             K_bu=self.K2, K_bi=self.K3, bias_mode=bias_mode,
             lo_r=self.min_rating, hi_r=self.max_rating,
             inner_steps=self.inner_steps,
-            use_kernel=self.device.type == 'cuda')
+            use_kernel=self.device.type == 'cuda', ff_dtype='bfloat16')
         driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
                                    self.min_improvement,
                                    plateau_decay=plateau)
@@ -252,15 +262,11 @@ class GDRecommender(MFRecommender):
                              driver.lr_scale)
         self.rmse_history = driver.history
         P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
-
-        def host(t, n):
-            return np.array(t[:n].cpu().numpy())
-
-        self.P = host(P, self.nbr_users)
-        self.Q = host(Q, self.nbr_items)
+        self.P = _host(P, self.nbr_users)
+        self.Q = _host(Q, self.nbr_items)
         if bias_mode == 'learned':
-            self.users_bias = host(bu, self.nbr_users)
-            self.items_bias = host(bi, self.nbr_items)
+            self.users_bias = _host(bu, self.nbr_users)
+            self.items_bias = _host(bi, self.nbr_items)
         if verbose:
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)
@@ -280,6 +286,18 @@ class GDRecommender(MFRecommender):
         else:
             mode = 'none'
         self._dispatch_engine(mode, verbose)
+
+    def _lr_schedule(self):
+        '''(lr_decay, lr_plateau_decay), each checked to lie in (0, 1].'''
+        decay = float(self.lr_decay)
+        if not (0.0 < decay <= 1.0):
+            raise Error('lr_decay must be in (0, 1] (got %r)'
+                        % self.lr_decay)
+        plateau = float(self.lr_plateau_decay)
+        if not (0.0 < plateau <= 1.0):
+            raise Error('lr_plateau_decay must be in (0, 1] (got %r)'
+                        % self.lr_plateau_decay)
+        return decay, plateau
 
     def _dispatch_engine(self, mode, verbose):
         '''``engine='auto'`` and ``'alternating'`` run the sorted-window
@@ -312,6 +330,94 @@ class GDRecommender(MFRecommender):
         self.compute_users_bias_bk()
         self._dispatch_engine('learned', verbose)
 
+    def feature_training_implicit(self, initialize_model=True,
+                                  verbose=False):
+        '''SVD++ with implicit feedback factors Y (reference
+        gradient_descent.py:547-574; ``mfrec_tpu/models/gd.py:1025-1058``):
+        the joint init, the BellKor biases, the feedback arrays, Y = 0,
+        then the sorted-window implicit tier.  Every engine but
+        ``'alternating_sharded'`` runs that tier, as in the JAX model.'''
+        self._init_factors(initialize_model, sequential=False)   # joint
+        self.compute_overall_avg()
+        self.compute_items_bias_bk()
+        self.compute_users_bias_bk()
+        self.initialize_rated_feedback()
+        self.Y = np.zeros_like(self.Q)
+        if self.engine == 'alternating_sharded':
+            raise NotImplementedError(
+                "engine 'alternating_sharded' is not ported yet (ROADMAP %s);"
+                " use engine='alternating'"
+                % _UNPORTED_ENGINES['alternating_sharded'])
+        self._run_alternating_implicit(verbose=verbose)
+
+    def _implicit_epoch(self, use_kernel=None):
+        '''The SVD++ epoch (``ops.sgd_mf.make_alternating_implicit_epoch``)
+        as this model runs it, its starting state ``(Paug, Qaug, Ypad)``
+        from the model's P, Q, biases and Y, and its fixed arguments
+        ``(mu, p_layout, q_layout, nrm_rows)``, on the model's device:
+        W=512 layouts, ``inner_steps_implicit`` sweeps, the fixed side in
+        f32 (bf16 rounding hurts the Y-coupled convergence:
+        ``mfrec_tpu/models/gd.py:724-726``).  ``use_kernel`` defaults to
+        whether the model is on a CUDA device.'''
+        lr, _, _ = self._alt_lrs()
+        # the aggregation phases couple rows across the batch: W=512
+        p_layout, q_layout, W_user, W_item = self._alternating_layouts(512)
+        state = self._state(with_bias=True)
+        pad = torch.nn.functional.pad
+        Paug, Qaug = sgd_mf.augment_factors(
+            pad(state.P, (0, 0, 0, W_user)), pad(state.Q, (0, 0, 0, W_item)),
+            pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
+        Ypad = pad(torch.from_numpy(np.array(self.Y, np.float32)).to(
+            self.device), (0, 0, 0, W_item))
+        nrm_rows = torch.from_numpy(
+            _inv_sqrt_counts(self.ratings.user_counts(),
+                             self.nbr_users + W_user)).to(self.device)
+        if use_kernel is None:
+            use_kernel = self.device.type == 'cuda'
+        epoch = sgd_mf.make_alternating_implicit_epoch(
+            W_user, W_item, lr, lr, self.K, self.K, lo_r=self.min_rating,
+            hi_r=self.max_rating, inner_steps=self.inner_steps_implicit,
+            use_kernel=use_kernel)
+        return epoch, (Paug, Qaug, Ypad), (state.mu, p_layout, q_layout,
+                                            nrm_rows)
+
+    def _run_alternating_implicit(self, verbose=False):
+        '''SVD++ epochs under the convergence driver, with ``lr_decay``
+        and ``lr_plateau_decay`` scaling the half-passes and the Y step
+        together; P, Q and Y come back as numpy.'''
+        decay, plateau = self._lr_schedule()
+        epoch, state, (mu, p_layout, q_layout, nrm_rows) = \
+            self._implicit_epoch()
+        driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
+                                   self.min_improvement,
+                                   plateau_decay=plateau)
+
+        def one_epoch(st):
+            Pa, Qa, Yp = st
+            s = driver.lr_scale
+            if decay == 1.0 and s == 1.0:
+                Pa, Qa, Yp, rmse = epoch(Pa, Qa, Yp, mu, p_layout, q_layout,
+                                         nrm_rows)
+            else:
+                # the schedule scales the half-passes and the Y step
+                e = len(driver.history)
+                Pa, Qa, Yp, rmse = epoch(Pa, Qa, Yp, mu, p_layout, q_layout,
+                                         nrm_rows, np.float32(s * decay ** e))
+            return (Pa, Qa, Yp), rmse
+
+        Paug, Qaug, Ypad = driver.run(one_epoch, state)
+        if plateau < 1.0 and driver.lr_scale < 1.0:
+            self.logger.info('plateau decay engaged: final lr scale %g',
+                             driver.lr_scale)
+        self.rmse_history = driver.history
+        P, Q, _, _ = sgd_mf.split_factors(Paug, Qaug)
+        self.P = _host(P, self.nbr_users)
+        self.Q = _host(Q, self.nbr_items)
+        self.Y = _host(Ypad, self.nbr_items)
+        if verbose:
+            for e, r in enumerate(driver.history):
+                self.logger.info('epoch %d rmse %.5f', e, r)
+
     # ---------------------------------------------------------- predictors
     def predict_rating(self, item_index, user_index):
         '''dot + 1.0 baseline (reference gradient_descent.py:621-631).'''
@@ -323,6 +429,18 @@ class GDRecommender(MFRecommender):
         '''dot + mu + b_i + b_u (reference gradient_descent.py:637-648).'''
         return float(self.Q[item_index] @ self.P[user_index]
                      + self.overall_bias + self.items_bias[item_index]
+                     + self.users_bias[user_index])
+
+    def predict_rating_implicit(self, item_index, user_index):
+        '''SVD++ predictor with the feedback-sum user vector (reference
+        gradient_descent.py:651-667).'''
+        seek, span = self.feedback_hash[user_index]
+        if span <= 0:
+            return self.predict_rating_with_bias(item_index, user_index)
+        items_id = self.feedback_rated[seek:seek + span, 1]
+        p_u = self.P[user_index] + self.Y[items_id].sum(0) / np.sqrt(span)
+        return float(self.Q[item_index] @ p_u + self.overall_bias
+                     + self.items_bias[item_index]
                      + self.users_bias[user_index])
 
     def predict_rating_by_label(self, user_label, item_label):

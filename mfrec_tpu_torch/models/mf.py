@@ -65,6 +65,10 @@ class MFRecommender(BaseRecommender):
         self._alt_layout_cache = (key, out)
         return out
 
+    def clamping(self, value, min=1.0, max=5.0):
+        '''Clamp to [min, max] (``mfrec_tpu/models/mf.py:65-68``).'''
+        return float(np.clip(value, min, max))
+
     def init_feature_normal(self, mean=0.0, std=0.1):
         '''Random-normal factor init from the model's numpy rng (Q, then
         P: the same seed gives the JAX package's factors).'''

@@ -125,7 +125,9 @@ class Segments(NamedTuple):
     entries ``seg_ptr[s]:seg_ptr[s+1]`` (one row's masked-in ratings of
     one batch, in batch order) and ``seg_cnt[s]`` is their sum of
     bf16(m).  ``ent_fix``/``ent_r``/``ent_m`` are the entries' fixed-side
-    row, rating and mask.  ``longest`` is the largest row's entry count,
+    row, rating and mask, ``ent_row`` their updated row (K4's phase
+    aggregation gathers by it).  ``longest`` is the largest row's entry
+    count,
     ``longest_segments`` its number of segments; ``max_row`` and
     ``max_fix`` bound the rows it reads (host ints, so the wrapper checks
     them without a device sync); the first ``n_wide`` blocks are the rows
@@ -143,6 +145,7 @@ class Segments(NamedTuple):
     max_row: int
     max_fix: int
     n_wide: int
+    ent_row: torch.Tensor
 
 
 def build_segments(fix, r, m, kl, lo, W, device):
@@ -197,7 +200,8 @@ def build_segments(fix, r, m, kl, lo, W, device):
         if row_len.size else 0,
         max_row=int(rows.max()) if n else -1,
         max_fix=int(ent_fix.max()) if n else -1,
-        n_wide=int((row_len >= WIDE_ROW).sum()))
+        n_wide=int((row_len >= WIDE_ROW).sum()),
+        ent_row=t(rows, np.int32))
 
 
 def _check_args(F_upd, F_fix, batches, W, lrv, regv, link, inner_steps):

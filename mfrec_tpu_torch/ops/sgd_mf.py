@@ -12,21 +12,33 @@ Port of the default path of ``mfrec_tpu/ops/sgd_mf.py``:
 * ``clamp`` (``:98``);
 * ``make_alternating_epoch`` (``:491-868``): a P half-pass over the
   user-sorted stream (Q fixed), then a Q half-pass over the item-sorted
-  stream (P fixed), each batch running T gradient sweeps on its window.
+  stream (P fixed), each batch running T gradient sweeps on its window;
+* ``_agg_window`` / ``_scan_window_agg`` (``:871-908``) and
+  ``make_alternating_implicit_epoch`` (``:911-1003``): the SVD++ tier,
+  whose five phases are window aggregations (K4) around the two
+  half-passes.
 
 ``use_kernel`` takes the place of the JAX ``use_pallas_full``.  Off, each
 batch runs the XLA branch's math (``:787-839``) in plain torch: the
 window read in f32, the fixed side in f32, the per-sample gradient
 ``g = eff*ff - regv*fu*m`` rounded to bf16 before it is summed per row in
-f32.  On, the fixed side is cast to bf16 once per half-pass (``:744-751``)
-and the half-pass goes through K1's wrapper
+f32.  On, the half-pass goes through K1's wrapper
 (``ops.half_pass_kernel.half_pass``): the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors.
+its plain version for CPU tensors; with ``ff_dtype='bfloat16'`` the fixed
+side is cast to bf16 once per half-pass first (``:744-751``), else it
+stays f32.  ``use_agg_kernel`` is the JAX ``use_pallas_agg``: the plain
+sweep with K4 (``ops.window_agg_kernel.window_aggregate``) summing the
+gradients and counts in place of ``index_add_``.
+
+The aggregation phases go through K4 the same way: on a layout with K1's
+segment table (a CUDA model's) a whole phase is one ``scan_aggregate``
+launch; otherwise each batch is one ``window_aggregate`` call, as the
+JAX scan takes it.
 
 Not ported (opt-in on the JAX side, off the default path): the grouped
-and gather-grouped half-passes, ``probe_ff``, ``use_pallas_agg`` (K4),
-``locality_sort`` and the epoch-builder memo (eager PyTorch compiles
-nothing, so there is nothing to memoize).
+and gather-grouped half-passes, ``probe_ff``, ``locality_sort`` and the
+epoch-builder memo (eager PyTorch compiles nothing, so there is nothing
+to memoize).
 '''
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.ops import half_pass_kernel
+from mfrec_tpu_torch.ops import half_pass_kernel, window_agg_kernel
 
 
 class MFState(NamedTuple):
@@ -136,6 +148,11 @@ class PassLayout:
         ub, ib, rb, mb, kl, lo, W = layout
         self.axis = axis
         self.W = int(W)
+        # checked once here, so the per-batch K4 calls need not check
+        inside = np.asarray(kl)[np.asarray(mb) != 0]
+        if inside.size and (inside.min() < 0 or inside.max() >= self.W):
+            raise ValueError('a masked-in entry has kl outside [0, %d)'
+                             % self.W)
         self.lo_host = np.asarray(lo)
 
         def t(a):
@@ -185,7 +202,8 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
                            clamp_pred=True, lo_r=1.0, hi_r=5.0,
                            row_mean=True, use_kernel=False, inner_steps=1,
                            link='identity', K_u=None, K_i=None,
-                           freeze_user_factors=False):
+                           freeze_user_factors=False, ff_dtype=None,
+                           use_agg_kernel=False):
     '''Build an epoch over augmented factors: a P half-pass over the
     user-sorted stream (Q fixed), then a Q half-pass over the
     item-sorted stream (P fixed).  With ``row_mean`` each touched row
@@ -202,10 +220,19 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
     ``link``: 'identity' or 'logistic' (pred = lo + sigmoid(s)*(hi-lo),
     the gradient picks up sigmoid'(s)*(hi-lo)).  ``K_u``/``K_i``:
     per-side factor regularization (default both K).
-    ``freeze_user_factors``: the user half-pass trains only b_u.'''
+    ``freeze_user_factors``: the user half-pass trains only b_u.
+    ``ff_dtype``: None (f32) or 'bfloat16', the fixed side's type on the
+    kernel path.  ``use_agg_kernel``: the agg-only tier (identity link
+    only, as in the JAX package).'''
     if link not in half_pass_kernel.LINKS:
         raise ValueError('link must be one of %s, got %r'
                          % (half_pass_kernel.LINKS, link))
+    if link != 'identity' and use_agg_kernel:
+        raise ValueError('non-identity links: use the fused kernel '
+                         '(use_kernel) or the plain path')
+    if ff_dtype not in (None, 'bfloat16'):
+        raise ValueError("ff_dtype must be None (f32) or 'bfloat16', got %r"
+                         % (ff_dtype,))
     learned = bias_mode == 'learned'
     bias_none = bias_mode == 'none'
     K_u = K if K_u is None else K_u
@@ -225,11 +252,13 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
                     K_bi, learned, freeze_user_factors))
         return rates[key]
 
-    def plain_batch(win, ff, r, m, kl, lrv, regv, mu, W):
+    def plain_batch(win, ff, r, m, kl32, lrv, regv, mu, W):
         '''The XLA branch of the JAX half_pass for one batch: f32 window
-        and fixed rows, bf16-rounded per-sample gradients.'''
+        and fixed rows, bf16-rounded per-sample gradients summed by
+        ``index_add_``, or by K4 on the agg-only tier.'''
+        kl = kl32.long()
         cnt = None
-        if row_mean:
+        if row_mean and not use_agg_kernel:
             cnt = torch.zeros(W, dtype=torch.float32, device=win.device)
             cnt.index_add_(0, kl, m.to(torch.bfloat16).float())
             cnt = torch.clamp(cnt, min=1.0)[:, None]
@@ -252,10 +281,16 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
             if t == 0:
                 sse = (err * err).sum()
             g = eff[:, None] * ff - regv[None, :] * fu * m[:, None]
-            gsum = torch.zeros_like(win)
-            gsum.index_add_(0, kl, g.to(torch.bfloat16).float())
-            if row_mean:
-                gsum = gsum / cnt
+            if use_agg_kernel:
+                gsum, cnt_a = window_agg_kernel.window_aggregate(
+                    g, kl32, m, W, check_ids=False)
+                if row_mean:
+                    gsum = gsum / torch.clamp(cnt_a, min=1.0)[:, None]
+            else:
+                gsum = torch.zeros_like(win)
+                gsum.index_add_(0, kl, g.to(torch.bfloat16).float())
+                if row_mean:
+                    gsum = gsum / cnt
             win = win + lrv[None, :] * gsum
         return win, sse
 
@@ -267,9 +302,10 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
                                 F_upd.device)
         lrv = lrv * lr_scale             # f32 rates times the f32 scale
         if use_kernel:
-            # the fixed side in bf16, cast once per half-pass
+            if ff_dtype == 'bfloat16':     # cast once per half-pass
+                F_fix = F_fix.to(torch.bfloat16)
             return half_pass_kernel.half_pass(
-                F_upd, F_fix.to(torch.bfloat16), layout.batches(), W, lrv,
+                F_upd, F_fix, layout.batches(), W, lrv,
                 regv, float(mu), T, clamp_pred, lo_r, hi_r, row_mean,
                 bias_none, link, segments=layout.segments)
         fix, r, m, kl, _ = layout.batches()
@@ -277,7 +313,7 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
         for b, lo in enumerate(layout.lo_host.tolist()):
             win = F_upd[lo:lo + W]
             out, sse_b = plain_batch(win, F_fix[fix[b].long()], r[b], m[b],
-                                     kl[b].long(), lrv, regv, mu, W)
+                                     kl[b], lrv, regv, mu, W)
             win.copy_(out)
             sse = sse + sse_b
         return sse
@@ -291,5 +327,125 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
         sse_q = half_pass(Qaug, Paug, mu, q_layout, W_item, False, s)
         n = torch.clamp(p_layout.mask_sum + q_layout.mask_sum, min=1.0)
         return Paug, Qaug, torch.sqrt((sse_p + sse_q) / n)
+
+    return epoch_fn
+
+
+def _agg_window(g, kl, m, W, row_mean):
+    '''Rows ``g [B, k]`` summed into the batch's W-row window by
+    window-local ids ``kl`` (int32; masked rows count nowhere), each
+    masked row ``g*m`` rounded to bf16 and summed in f32: K4.  Returns
+    the [W, k] sums, or per-row means with ``row_mean``.'''
+    gsum, cnt = window_agg_kernel.window_aggregate(
+        g * m[:, None], kl, m, W, check_ids=False)
+    if row_mean:
+        gsum = gsum / torch.clamp(cnt, min=1.0)[:, None]
+    return gsum
+
+
+def _scan_window_agg(target, layout, source_fn, W, mean):
+    '''Add ``source_fn(u, i, r, m)`` rows into ``target`` windows over a
+    sorted-pass layout, batch after batch -- the scatter-free profile
+    aggregation phase of the implicit (SVD++) and FN tiers.  With K1's
+    segment table on the layout, the whole phase is one K4 launch over
+    the layout's masked-in entries (``source_fn`` sees them in the
+    table's order); without it, one K4 call per batch.  Updates
+    ``target`` in place and returns it.'''
+    if layout.W != W:
+        raise ValueError('layout window %d != aggregation window %d'
+                         % (layout.W, W))
+    seg = layout.segments
+    if seg is not None:
+        u, i = (seg.ent_row, seg.ent_fix) if layout.axis == 'user' \
+            else (seg.ent_fix, seg.ent_row)
+        vals = source_fn(u.long(), i.long(), seg.ent_r, seg.ent_m)
+        return window_agg_kernel.scan_aggregate(target, vals.contiguous(),
+                                                seg, mean)
+    for b, lo in enumerate(layout.lo_host.tolist()):
+        vals = source_fn(layout.u[b].long(), layout.i[b].long(),
+                         layout.r[b], layout.m[b])
+        target[lo:lo + W] += _agg_window(vals, layout.kl[b], layout.m[b],
+                                         W, mean)
+    return target
+
+
+def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
+                                    clamp_pred=True, lo_r=1.0, hi_r=5.0,
+                                    row_mean=True, inner_steps=1,
+                                    use_kernel=False, ff_dtype=None):
+    '''SVD++ (implicit feedback) at sorted-window speed:
+
+        r_hat = mu + b_u + b_i + q_i . (p_u + |N(u)|^-1/2 sum_j y_j)
+
+    Per epoch, as ``mfrec_tpu/ops/sgd_mf.py:917-950`` sets out:
+
+      1. A[u] = nrm_u * sum_{j in R(u)} y_j (K4 over the user layout).
+      2. P half-pass on the effective factors Peff = Paug + A; Paug =
+         Peff - A afterwards (the f32 round trip of the JAX package).
+      3. Q half-pass against the updated Peff.
+      4. G[u] = nrm_u * sum_{i in R(u)} err_ui q_i (K4 over the user
+         layout, errors from the updated Peff and Qaug).
+      5. y_j += lr_y * (mean_{u: j in N(u)} G[u] - K_y y_j), batch after
+         batch over the item layout (one K4 call per batch: a window
+         reads what the batch before it wrote).
+
+    ``epoch_fn(Paug, Qaug, Ypad, mu, p_layout, q_layout, nrm_rows,
+    lr_scale=1.0) -> (Paug, Qaug, Ypad, rmse)``.  Ypad: [nbr_items +
+    W_item, k] implicit factors, updated in place; nrm_rows: [nbr_users +
+    W_user] per-user |N(u)|^-1/2 (0 for none), on the factors' device.
+    Fixed-bias mode; the RMSE pools both half-passes.  ``lr_scale``
+    scales the half-passes' rates and the Y step together.
+    ``on_phase(name)``, if given, is called as each phase ends (a timing
+    hook: 'aggregate Y', 'half-passes', 'aggregate errors', 'Y step').'''
+    base = make_alternating_epoch(W_user, W_item, lr, K, bias_mode='fixed',
+                                  clamp_pred=clamp_pred, lo_r=lo_r,
+                                  hi_r=hi_r, row_mean=row_mean,
+                                  use_kernel=use_kernel,
+                                  inner_steps=inner_steps, ff_dtype=ff_dtype)
+
+    def epoch_fn(Paug, Qaug, Ypad, mu, p_layout, q_layout, nrm_rows,
+                 lr_scale=1.0, on_phase=None):
+        mark = on_phase or (lambda name: None)
+        s = np.float32(lr_scale)
+        step_y = float(np.float32(lr_y) * s)      # f32, as the JAX scalar
+        mu = torch.as_tensor(mu, dtype=torch.float32)
+        k = Ypad.shape[1]
+
+        def zeros():
+            return torch.zeros((Paug.shape[0], k), dtype=Paug.dtype,
+                               device=Paug.device)
+
+        # 1) user aggregates of Y (sum over rated items, then * nrm)
+        A = _scan_window_agg(zeros(), p_layout, lambda u, i, r, m: Ypad[i],
+                             W_user, mean=False)
+        Apad = torch.nn.functional.pad(A * nrm_rows[:, None], (0, 2))
+        mark('aggregate Y')
+        # 2+3) the alternating epoch on the effective factors
+        Peff, Qaug, rmse = base(Paug + Apad, Qaug, mu, p_layout, q_layout,
+                                float(s))
+        Paug = Peff - Apad
+        mark('half-passes')
+
+        # 4) error-weighted item-factor sums into user windows
+        def err_q(u, i, r, m):
+            ff = Qaug[i]
+            pred = mu + (Peff[u] * ff).sum(-1)
+            if clamp_pred:
+                pred = clamp(pred, lo_r, hi_r)
+            return ((r - pred) * m)[:, None] * ff[:, :k]
+
+        G = _scan_window_agg(zeros(), p_layout, err_q, W_user, mean=False)
+        G = G * nrm_rows[:, None]
+        mark('aggregate errors')
+        # 5) G rows into item windows, step Y batch after batch (the
+        # decay rides per sample, so untouched rows get none)
+        for b, lo in enumerate(q_layout.lo_host.tolist()):
+            win = Ypad[lo:lo + W_item]
+            kl = q_layout.kl[b]
+            vals = G[q_layout.u[b].long()] - K_y * win[kl.long()]
+            gsum = _agg_window(vals, kl, q_layout.m[b], W_item, row_mean)
+            win.copy_(win + step_y * gsum)
+        mark('Y step')
+        return Paug, Qaug, Ypad, rmse
 
     return epoch_fn

@@ -1,7 +1,7 @@
-'''K3, K1 and K2 on a CUDA device: each kernel against its plain version,
-and a CUDA model against the same model on the CPU.  Every case is marked
-``gpu`` and skips without a card.  This file imports no JAX, so on a GPU
-host without it run it alone, without the suite's conftest:
+'''K3, K1, K2 and K4 on a CUDA device: each kernel against its plain
+version, and a CUDA model against the same model on the CPU.  Every case
+is marked ``gpu`` and skips without a card.  This file imports no JAX,
+so on a GPU host without it run it alone, without the suite's conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
@@ -13,7 +13,9 @@ the bf16 tolerances of tests/test_pallas_half_pass.py (window atol
 bf16 at the same places, but an f32 ulp from FMA contraction or
 summation order can flip one bf16 rounding of the window read.  K2:
 atol 1e-4, rtol 1e-3 (tests/test_als.py:303, f32 sums in another
-order).'''
+order).  K4: counts exactly, sums atol 1e-5 + rtol 1e-5 (the same bf16
+rows summed in f32 in another order).  The SVD++ and FN epochs of a CUDA
+model against a CPU model's: K1's tolerances.'''
 import numpy as np
 import pytest
 import torch
@@ -330,3 +332,167 @@ def test_cuda_wrmf_trains_through_k2(cuda):
             out[dev] = m.P @ m.Q.T
         rms = float(np.sqrt(((out['cuda'] - out['cpu']) ** 2).mean()))
         assert rms < 1e-3, (params['solver'], rms)
+
+
+# K4: the same bf16 rows, f32 sums in another order
+K4_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize('k,W,B,case', [
+    (8, 64, 3000, 'random'), (64, 512, 16384, 'sorted'),
+    (66, 128, 16384, 'sorted'), (130, 512, 3001, 'random'),
+    (256, 16, 2000, 'one_id'), (1, 1, 777, 'random'),
+    (66, 128, 4096, 'all_masked'), (33, 40, 0, 'random')])
+def test_window_agg_kernel_matches_plain(cuda, k, W, B, case):
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    rng = np.random.default_rng(k + W + B)
+    g = rng.normal(0, 1, (B, k)).astype(np.float32)
+    kl = rng.integers(0, W, B).astype(np.int32)
+    if case == 'sorted':
+        kl.sort()
+    elif case == 'one_id':
+        kl[:] = W // 2
+    m = (rng.random(B) > 0.1).astype(np.float32)
+    if case == 'all_masked':
+        m[:] = 0.0
+    t = [torch.from_numpy(a).to(cuda) for a in (g, kl, m)]
+    before = wak.window_aggregate.launches
+    gs, cnt = wak.window_aggregate(*t, W)
+    torch.cuda.synchronize()
+    assert wak.window_aggregate.launches == before + 1
+    rs, rc = wak.window_aggregate_ref(*t, W)
+    assert torch.equal(cnt, rc)
+    torch.testing.assert_close(gs, rs, **K4_TOL)
+    again, _ = wak.window_aggregate(*t, W)
+    assert torch.equal(again, gs)                   # no atomics
+
+
+@pytest.mark.parametrize('mean', [False, True])
+@pytest.mark.parametrize('k', [10, 64, 200])
+def test_scan_aggregate_kernel_matches_plain(cuda, k, mean):
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    u, i, v = synthetic_ratings(400, 300, 30000, rank=4, seed=k)
+    lay = sgd_mf.sorted_pass_layout(u, i, v, 2048, axis='item',
+                                    max_window=64)
+    seg = hk.build_segments(lay[0], lay[2], lay[3], lay[4], lay[5], 64, cuda)
+    rng = np.random.default_rng(k)
+    vals = torch.from_numpy(rng.normal(0, 1, (int(seg.ent_r.shape[0]), k))
+                            .astype(np.float32)).to(cuda)
+    t0 = torch.from_numpy(rng.normal(0, 1, (300 + 64, k)).astype(
+        np.float32)).to(cuda)
+    before = wak.scan_aggregate.launches
+    got = wak.scan_aggregate(t0.clone(), vals, seg, mean)
+    torch.cuda.synchronize()
+    assert wak.scan_aggregate.launches == before + 1
+    want = wak.scan_aggregate_ref(t0.clone(), vals, seg, mean)
+    torch.testing.assert_close(got, want, **K4_TOL)
+
+
+def _tier_inputs(dev, W=64, k=16, U=500, I=300):
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.ops import sgd_mf
+    u, i, v = synthetic_ratings(U, I, 20000, rank=4, seed=4)
+    keep = np.unique(u.astype(np.int64) * I + i, return_index=True)[1]
+    u, i, v = u[keep], i[keep], v[keep]
+    lay = {a: sgd_mf.sorted_pass_layout(u, i, v, 4096, axis=a,
+                                        max_window=W)
+           for a in ('user', 'item')}
+    pl_, ql_ = (sgd_mf.PassLayout(lay[a], a, dev, segments=dev == 'cuda')
+                for a in ('user', 'item'))
+    rng = np.random.default_rng(0)
+    Pa, Qa = sgd_mf.augment_factors(
+        rng.normal(0, 0.1, (U + W, k)).astype(np.float32),
+        rng.normal(0, 0.1, (I + W, k)).astype(np.float32),
+        rng.normal(0, 0.1, U + W).astype(np.float32),
+        rng.normal(0, 0.1, I + W).astype(np.float32))
+    XY = rng.normal(0, 0.05, (2, I + W, k)).astype(np.float32)
+    cnt = np.bincount(u, minlength=U + W).astype(np.float32)
+    nrm = np.where(cnt > 0, 1.0 / np.sqrt(np.maximum(cnt, 1.0)), 0.0)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    return (t(Pa), t(Qa), t(XY[0]), t(XY[1]), float(v.mean()), pl_, ql_,
+            t(nrm), W, ql_.nbr_batches)
+
+
+@pytest.mark.parametrize('tier', ['implicit', 'fn'])
+def test_cuda_tier_epochs_match_cpu(cuda, tier):
+    '''Two SVD++ or FN epochs with use_kernel=True on CUDA tensors (K1,
+    K4) against the same epochs on CPU tensors (their plain versions).'''
+    from mfrec_tpu_torch.ops import fn as fn_ops
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        Pa, Qa, X, Y, mu, pl_, ql_, nrm, W, nq = _tier_inputs(dev)
+        if tier == 'implicit':
+            ep = sgd_mf.make_alternating_implicit_epoch(
+                W, W, 0.15, 0.15, 0.02, 0.02, inner_steps=8, use_kernel=True)
+            state = (Pa, Qa, Y)
+        else:
+            ep = fn_ops.make_fn_alternating_epoch(
+                W, W, 0.15, 0.15, 0.15, 0.15, 0.02, 0.007, 0.007,
+                inner_steps=8, use_kernel=True)
+            state = (Pa, Qa, X, Y)
+        counts = (hk.half_pass.launches, wak.scan_aggregate.launches,
+                  wak.window_aggregate.launches)
+        for _ in range(2):
+            *state, rmse = ep(*state, mu, pl_, ql_, nrm)
+        got = (hk.half_pass.launches - counts[0],
+               wak.scan_aggregate.launches - counts[1],
+               wak.window_aggregate.launches - counts[2])
+        assert got == ((4, 4, 2 * nq) if dev == 'cuda' else (0, 0, 0))
+        out[dev] = [x.cpu() for x in state] + [float(rmse)]
+    for a, b in zip(out['cuda'][:-1], out['cpu'][:-1]):
+        torch.testing.assert_close(a, b, **K1_TOL)
+    assert out['cuda'][-1] == pytest.approx(out['cpu'][-1], rel=1e-3)
+
+
+def test_cuda_agg_tier_matches_cpu(cuda):
+    '''The agg-only tier: K4 once per batch and sweep.'''
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        Pa, Qa, _, _, mu, pl_, ql_, _, W, nq = _tier_inputs(dev)
+        ep = sgd_mf.make_alternating_epoch(W, W, 0.15, 0.02, inner_steps=4,
+                                           use_agg_kernel=True)
+        before = wak.window_aggregate.launches
+        Pa, Qa, rmse = ep(Pa, Qa, mu, pl_, ql_)
+        want = 4 * (pl_.nbr_batches + nq) if dev == 'cuda' else 0
+        assert wak.window_aggregate.launches == before + want
+        out[dev] = (Pa.cpu(), Qa.cpu(), float(rmse))
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], **K1_TOL)
+    torch.testing.assert_close(out['cuda'][1], out['cpu'][1], **K1_TOL)
+    assert out['cuda'][2] == pytest.approx(out['cpu'][2], rel=1e-3)
+
+
+def test_cuda_models_train_svdpp_and_fn(cuda):
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.models.fn import FNRecommender
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    u, i, v = synthetic_ratings(800, 400, 30000, rank=4, seed=5)
+    gd = GDRecommender(800, 400, {'nbr_features': 16, 'min_epochs': 3,
+                                  'max_epochs': 3, 'inner_steps_implicit': 8,
+                                  'feature_init': 0.05}, device='cuda')
+    fn = FNRecommender(800, 400, {'nbr_features': 16, 'nbr_epochs': 3,
+                                  'inner_steps': 8, 'feature_init': 0.05,
+                                  'min_improvement': -1.0}, device='cuda')
+    for m, train in ((gd, gd.feature_training_implicit), (fn, fn.train)):
+        m.set_ratings(u, i, v)
+        before = wak.scan_aggregate.launches
+        train()
+        assert wak.scan_aggregate.launches == before + 6
+        h = m.get_rmse_history()
+        assert np.isfinite(h).all() and h[-1] < h[0]
+        assert isinstance(m.P, np.ndarray) and np.isfinite(m.Y).all()
+    assert np.isfinite(gd.predict_rating_implicit(3, 5))
+    idx, _ = fn.recommend_batch(np.arange(8), 5,
+                                predictor='predict_rating_with_bias')
+    assert idx.shape == (8, 5)

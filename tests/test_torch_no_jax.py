@@ -25,7 +25,9 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.models.mf', 'mfrec_tpu_torch.models.gd',
            'mfrec_tpu_torch.serving.server', 'mfrec_tpu_torch.interop',
            'mfrec_tpu_torch.ops.als', 'mfrec_tpu_torch.ops.cg_kernel',
-           'mfrec_tpu_torch.models.wrmf', 'mfrec_tpu_torch.eval.metrics']
+           'mfrec_tpu_torch.models.wrmf', 'mfrec_tpu_torch.eval.metrics',
+           'mfrec_tpu_torch.ops.window_agg_kernel', 'mfrec_tpu_torch.ops.fn',
+           'mfrec_tpu_torch.models.fn']
 
 
 def _env():

@@ -59,7 +59,8 @@ def test_epoch_matches_jax(bias_mode, use_kernel, k):
     ep_j = jax_sgd.make_alternating_epoch(
         W, W, donate=False, use_pallas_full=use_kernel,
         pallas_interpret=use_kernel, ff_dtype='bfloat16', **kw)
-    ep_t = sgd_mf.make_alternating_epoch(W, W, use_kernel=use_kernel, **kw)
+    ep_t = sgd_mf.make_alternating_epoch(W, W, use_kernel=use_kernel,
+                                         ff_dtype='bfloat16', **kw)
     pj = tuple(jnp.asarray(x) for x in lay['user'][:-1])
     qj = tuple(jnp.asarray(x) for x in lay['item'][:-1])
     pt = sgd_mf.PassLayout(lay['user'], 'user', 'cpu')
