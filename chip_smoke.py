@@ -6,6 +6,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --phases 12   # toolchain + kernel checks only
     python3 chip_smoke.py --phases 125  # ... and the ALS slice
     python3 chip_smoke.py --phases 1267 # ... and the SVD++ and FN slice
+    python3 chip_smoke.py --phases 18   # ... the probe tools (P1, P2)
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -51,6 +52,15 @@ Phase 7  the FN tier the same way: ``FNRecommender.train()`` at
          bench.py's operating point (T=64), then retrieval through K3
          from the materialized profiles against the plain version, and
          one ``add_user`` fold-in.
+Phase 8  the probe tools: P1 and P2 against their plain versions on the
+         card (P1 on real ML-10M batches at T=8, on edge cases and on a
+         whole reduced half-pass; every P2 variant on a chain at the
+         probe's shape), then ``tools.ab_kernel``'s interleaved A/B of P1
+         and K1 epochs at the JAX bench's data shape (10M raw draws),
+         ``tools.kernel_probe``'s default, 'fix' and 'all2d' modes and
+         'hiT' (K1), and the deletion variants over the first 16 ML-10M
+         user batches (K1's throughput regime), with P1's, P2's and
+         K1's launch counts over that run.
 
 Any failure exits non-zero.  On success the line before the last is the
 kernels' JSON summary and the last line is
@@ -156,7 +166,8 @@ def timed_ms(fn, iters):
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
-        half_pass_kernel, topn_kernel, window_agg_kernel
+        half_pass_kernel, half_pass_old_kernel, probe_kernel, topn_kernel, \
+        window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -164,9 +175,11 @@ def phase1():
     log('nvcc: %s' % nv.strip().splitlines()[-1])
     log('card: %s' % card_line())
     t0 = time.perf_counter()
-    names = ('topn', 'half_pass', 'pcg', 'window_agg')
+    names = ('topn', 'half_pass', 'pcg', 'window_agg', 'half_pass_old',
+             'probe')
     _cuda_build.build(names)
-    for mod in (topn_kernel, half_pass_kernel, cg_kernel, window_agg_kernel):
+    for mod in (topn_kernel, half_pass_kernel, cg_kernel, window_agg_kernel,
+                half_pass_old_kernel, probe_kernel):
         mod._library()
     log('built %s in %.1f s' % (', '.join('csrc/%s.cu' % x for x in names),
                                 time.perf_counter() - t0))
@@ -341,18 +354,19 @@ def roofline_ms(ops, nbytes):
         'operations' if t_ops >= t_bytes else 'bytes'
 
 
-def k1_bound(seg, k, T):
+def k1_bound(seg, k, T, flops=4.0):
     '''The least time the card could take for a K1 launch over
-    ``seg``: the larger of its f32 operations (about 4k per rating and
-    sweep: dot, eff*ff, accumulate) over the FP32 peak and the bytes it
-    must move (the segment table, each fixed row once in bf16, each
-    updated row read and written once) over the memory rate.'''
+    ``seg``: the larger of its f32 operations (about ``flops``*k per
+    rating and sweep; 4 for K1: dot, eff*ff, accumulate) over the FP32
+    peak and the bytes it must move (the segment table, each fixed row
+    once in bf16, each updated row read and written once) over the
+    memory rate.'''
     import torch
     n = int(seg.ent_r.numel())
     nb = int(seg.blk_row.numel())
     ns = int(seg.seg_cnt.numel())
     nfix = int(torch.unique(seg.ent_fix).numel())
-    ops = 4.0 * k * T * n
+    ops = flops * k * T * n
     nbytes = (12.0 * n + 12.0 * nb + 8.0 * ns + 8.0 * k * nb + 2.0 * k * nfix
               + 8.0 * k)
     return roofline_ms(ops, nbytes)
@@ -704,18 +718,11 @@ def phase3(U=69_878, I=10_677, nnz=10_000_000, device='cuda'):
 
 
 def bias_floor_rmse(users, items, vals, U, I):
-    '''Training RMSE of the best mu + b_i + b_u predictor (one bincount
-    pass each; the JAX bench's floor), which a model that learns no
-    structure cannot beat.'''
-    mu = vals.mean()
-    cnt_i = np.bincount(items, minlength=I)
-    bi = np.bincount(items, weights=vals - mu, minlength=I) \
-        / np.maximum(cnt_i, 1)
-    resid = vals - mu - bi[items]
-    cnt_u = np.bincount(users, minlength=U)
-    bu = np.bincount(users, weights=resid, minlength=U) / np.maximum(cnt_u, 1)
-    pred = np.clip(mu + bi[items] + bu[users], 1.0, 5.0)
-    return float(np.sqrt(((vals - pred) ** 2).mean()))
+    '''Training RMSE of the best mu + b_i + b_u predictor (the JAX
+    bench's floor, ``mfrec_tpu_torch.tools.bench_data``'s copy), which a
+    model that learns no structure cannot beat.'''
+    from mfrec_tpu_torch.tools import bench_data
+    return bench_data.bias_floor_rmse(users, items, vals, U, I)[0]
 
 
 def retrieval_vs_plain(m, users, predictors):
@@ -1900,6 +1907,367 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     return res
 
 
+# phase 8: the A/B tool's T, the operations P1 does per rating, sweep and
+# column (dot 2; g = err*ff - (regv*fu)*m 3, regv*fu being the row's;
+# accumulate 1), and the probe variants timed over real batches (each
+# deletion with its baseline)
+P1_T = 8
+P1_FLOPS = 6.0
+# P2 against its plain version, besides the window at K1's tolerances:
+# each entry's change over the chain within 1 % of the largest change
+# (the no_acc variants only shrink the window, by less than K1's atol)
+P2_UPD_TOL = 1e-2
+THROUGHPUT_VARIANTS = ('full', 'no_fu', 'no_acc', 'no_elem', 'bf16_chain',
+                       'all2d', 'all2d_no_dot', 'all2d_no_prod',
+                       'all2d_no_fu', 'all2d_no_acc', 'all2d_no_elem')
+
+
+def _p1_check(name, F0, Ffix, batches, seg, W, lrv, regv, T=P1_T, mu=3.5,
+              iters=0, plain_iters=1, zero_mask=False):
+    """P1 (``half_pass_old``) against its plain version from ``F0``, in
+    the working types (f32 factors, bf16 fixed side), K1's tolerances;
+    a second launch must give the same bits.  Returns its record."""
+    import torch
+    from mfrec_tpu_torch.ops.half_pass_old_kernel import half_pass_old, \
+        half_pass_old_ref
+    args = (Ffix, batches, W, lrv, regv, mu, T)
+    Fk = F0.clone()
+    sse_k = float(half_pass_old(Fk, *args, segments=seg))
+    again = F0.clone()
+    half_pass_old(again, *args, segments=seg)
+    torch.cuda.synchronize()
+    Fp = F0.clone()
+    sse_p = float(half_pass_old_ref(Fp, *args))
+    diff = (Fk - Fp).abs()
+    err = float(diff.max())
+    sse_err = abs(sse_k - sse_p) / abs(sse_p) if sse_p else abs(sse_k)
+    moved = float((Fk - F0).abs().max())
+    ok = bool((diff <= K1_ATOL + K1_RTOL * Fp.abs()).all()) and \
+        bool(torch.isfinite(Fk).all()) and sse_err <= K1_SSE_RTOL and \
+        torch.equal(Fk, again) and \
+        ((moved == 0.0) if zero_mask else (moved > 0.0))
+    k = F0.shape[1]
+    rec = {'case': name, 'k': k, 'T': T, 'ratings': int(seg.ent_r.numel()),
+           'rows': int(seg.blk_row.numel()), 'ok': ok, 'max_abs_err': err,
+           'sse_rel_err': sse_err}
+    if iters:
+        rec['ms'] = timed_ms(lambda: half_pass_old(Fk, *args, segments=seg),
+                             iters)
+        rec['plain_ms'] = timed_ms(lambda: half_pass_old_ref(Fp, *args),
+                                   plain_iters)
+        rec['bound_ms'], rec['bound_by'] = k1_bound(seg, k, T, P1_FLOPS)
+    log('  %-34s ok=%s max_abs_err=%.3g sse_rel_err=%.3g (%d ratings, %d '
+        'rows)%s' % (name, ok, err, sse_err, rec['ratings'], rec['rows'],
+                     ' kernel %.3f ms, plain %.3f ms, bound %.3f ms'
+                     % (rec['ms'], rec['plain_ms'], rec['bound_ms'])
+                     if iters else ''))
+    return rec
+
+
+def p1_layout_case(name, F_upd, F_fix, layout, axis, batches=None,
+                   **kw):
+    """P1 over ``batches`` of a ``sorted_pass_layout`` (all by default) at
+    the A/B tool's rates."""
+    import torch
+    from mfrec_tpu_torch.ops import sgd_mf
+    dev = torch.device('cuda')
+    W = layout[-1]
+    arrs = list(layout[:-1])
+    if batches is not None:
+        arrs = [a[np.asarray(batches)] for a in arrs]
+    pl = sgd_mf.PassLayout(tuple(arrs) + (W,), axis, dev, segments=True)
+    lrv, regv = (torch.from_numpy(a).to(dev) for a in sgd_mf.column_rates(
+        F_upd.shape[1] - 2, axis == 'user', 0.15, 0.02, 0.02))
+    return _p1_check(name, torch.from_numpy(F_upd).to(dev),
+                     torch.from_numpy(F_fix).to(dev).to(torch.bfloat16),
+                     pl.batches(), pl.segments, W, lrv, regv, **kw)
+
+
+def p1_random_case(name, k, W, nb=2, B=4096, zero_mask=False, seed=0):
+    """P1 on ``nb`` random batches of B ratings (sorted window ids, 10 %
+    masked, the last column frozen where k > 1) at width k and window
+    W."""
+    import torch
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(seed)
+    n_upd, n_fix = 400 + W, 500
+    lo = np.sort(rng.integers(0, 400, nb)).astype(np.int32)
+    kl = np.sort(rng.integers(0, W, (nb, B)), axis=1).astype(np.int32)
+    m = (rng.random((nb, B)) > 0.1).astype(np.float32)
+    if zero_mask:
+        m[:] = 0.0
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, n_fix, (nb, B)).astype(np.int32)
+    seg = hk.build_segments(fix, r, m, kl, lo, W, dev)
+    F0 = torch.from_numpy(rng.normal(0, 0.1, (n_upd, k)).astype(
+        np.float32)).to(dev)
+    Ffix = torch.from_numpy(rng.normal(0, 0.1, (n_fix, k)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    lrv = torch.full((k,), 0.15, device=dev)
+    if k > 1:
+        lrv[-1] = 0.0
+    regv = torch.full((k,), 0.02, device=dev)
+    batches = tuple(torch.from_numpy(a).to(dev) for a in (fix, r, m, kl, lo))
+    return _p1_check(name, F0, Ffix, batches, seg, W, lrv, regv,
+                     zero_mask=zero_mask)
+
+
+def p2_bound(B, W, k, T, n_chain=1):
+    """P2's least time for ``n_chain`` calls of the full step: 4k f32
+    operations per rating and sweep (dot, eff*ff, accumulate) over the
+    FP32 peak against ff, r, m, kl read once and the window read and
+    written once over the memory rate."""
+    return roofline_ms(4.0 * k * T * B * n_chain,
+                       4.0 * B * k + 12.0 * B + 8.0 * W * k + 8.0 * k)
+
+
+def p2_case(name, data, variant, k, T=10, n_chain=3, iters=0,
+            plain_iters=0, ff16=False):
+    """A chain of ``n_chain`` calls of P2 variant ``variant`` at the
+    probe's shape against its plain version (the window at K1's
+    tolerances, each entry's change within P2_UPD_TOL of the largest
+    change; a second launch bit-identical).  ``ff16``: the fixed rows in
+    bf16.  With ``iters``, the times of one call at T."""
+    import torch
+    from mfrec_tpu_torch.ops import probe_kernel as p2
+    from mfrec_tpu_torch.tools import kernel_probe as kp
+    window, ff, r, m, kl, lrv, regv = data[k]
+    if ff16:
+        ff = ff.to(torch.bfloat16)
+    tab = p2.probe_tables(kl, kp.W)
+    args = (window, ff, r, m, kl, lrv, regv, variant, T)
+    out, sse = p2.probe_chain(*args, n_chain, kp.CH, tables=tab)
+    again, _ = p2.probe_chain(*args, n_chain, kp.CH, tables=tab)
+    torch.cuda.synchronize()
+    ref, sse_r = p2.probe_chain_ref(*args, n_chain, kp.CH)
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    moved = float((ref - window).abs().max())
+    upd_err = float(((out - window) - (ref - window)).abs().max())
+    sse_err = abs(float(sse) - float(sse_r)) / abs(float(sse_r))
+    ok = bool((diff <= K1_ATOL + K1_RTOL * ref.abs()).all()) and \
+        bool(torch.isfinite(out).all()) and sse_err <= K1_SSE_RTOL and \
+        torch.equal(out, again) and moved > 0 and \
+        upd_err <= P2_UPD_TOL * moved
+    rec = {'case': name, 'variant': variant, 'k': k, 'T': T,
+           'n_chain': n_chain, 'ok': ok, 'max_abs_err': err,
+           'update_err': upd_err, 'largest_update': moved,
+           'sse_rel_err': sse_err}
+    if iters:
+        rec['ms'] = timed_ms(lambda: p2.probe_chain(*args, 1, kp.CH,
+                                                    tables=tab), iters)
+        rec['plain_ms'] = timed_ms(lambda: p2.probe_chain_ref(*args, 1,
+                                                              kp.CH),
+                                   plain_iters or iters)
+        rec['bound_ms'], rec['bound_by'] = p2_bound(ff.shape[0], kp.W, k, T)
+    log('  %-30s ok=%s max_abs_err=%.3g update_err=%.3g of %.3g '
+        'sse_rel_err=%.3g%s'
+        % (name, ok, err, upd_err, moved, sse_err,
+           ' one call: kernel %.4f ms, plain %.4f ms, bound %.4f ms'
+           % (rec['ms'], rec['plain_ms'], rec['bound_ms']) if iters else ''))
+    return rec
+
+
+def p2_ff_dtype(data, card, reps=3):
+    """'full' at the probe's shape (k=66) with the fixed rows in f32, as
+    the probe passes them, and in bf16, K1's storage, interleaved over
+    ``reps``: the median marginal sweep of each in us per batch."""
+    import torch
+    from mfrec_tpu_torch.tools import kernel_probe as kp
+    d16 = {66: tuple(x.to(torch.bfloat16) if j == 1 else x
+                     for j, x in enumerate(data[66]))}
+    res = {'f32': [], 'bf16': []}
+    for rep in range(reps):
+        for key, d in (('f32', data), ('bf16', d16)):
+            t2 = kp.time_case(d, 'full', 2, 66, 3)
+            t10 = kp.time_case(d, 'full', 10, 66, 3)
+            res[key].append(1e6 * (t10 - t2) / 8)
+            log('  rep %d full, %-4s fixed rows: marginal %.2f us/batch  '
+                '[%s]' % (rep, key, res[key][-1], card))
+    out = {key: float(np.median(v)) for key, v in res.items()}
+    log('  full at the probe\'s shape: f32 fixed rows %.2f, bf16 %.2f us per '
+        'batch and sweep  [%s]' % (out['f32'], out['bf16'], card))
+    return out
+
+
+def p2_throughput(layout, F_upd, F_fix, card, nb=16):
+    """The deletion variants over the first ``nb`` user batches of the
+    ML-10M layout (each batch an independent problem: its window at lo,
+    its fixed rows gathered in f32), one launch of nb x W blocks at T=2
+    and T=10; and K1 over the same batches (its main path: bf16 fixed
+    side, one launch).  Logs and returns the marginal sweep in us per
+    batch."""
+    import torch
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import probe_kernel as p2
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.tools import kernel_probe as kp
+    dev = torch.device('cuda')
+    ub, ib, rb, mb, kl, lo, W = layout
+    k = F_upd.shape[1]
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    win = t(np.stack([F_upd[lo[b]:lo[b] + W] for b in range(nb)]))
+    ff = t(F_fix[ib[:nb]])
+    r, m, klt = t(rb[:nb]), t(mb[:nb]), t(kl[:nb], np.int32)
+    lrv, regv = (t(a) for a in sgd_mf.column_rates(k - 2, True, 0.15, 0.02,
+                                                   0.02))
+    def ms(fn):
+        return 1e3 * kp.timed_s(fn, dev, 3)
+
+    out = {}
+    tab = p2.probe_tables(klt, W)
+    ff16 = ff.to(torch.bfloat16)
+    for v in THROUGHPUT_VARIANTS + ('full_bf16ff',):
+        name, f = (v, ff) if v != 'full_bf16ff' else ('full', ff16)
+        ts = {T: ms(lambda: p2.probe_chain(
+            win, f, r, m, klt, lrv, regv, name, T, 1, kp.CH, tables=tab))
+            for T in (2, 10)}
+        out[v] = 1e3 * (ts[10] - ts[2]) / 8 / nb
+        log('  first %d user batches, %-14s T=2 %.3f ms, T=10 %.3f ms: '
+            'marginal %.2f us/batch  [%s]' % (nb, v, ts[2], ts[10], out[v],
+                                               card))
+    arrs = [a[:nb] for a in layout[:-1]]
+    pl = sgd_mf.PassLayout(tuple(arrs) + (W,), 'user', dev, segments=True)
+    F = t(F_upd)
+    Fb = t(F_fix).to(torch.bfloat16)
+    ts = {T: ms(lambda: hk.half_pass(F, Fb, pl.batches(), W, lrv, regv, 3.5,
+                                     T, segments=pl.segments))
+          for T in (2, 10)}
+    out['K1'] = 1e3 * (ts[10] - ts[2]) / 8 / nb
+    log('  first %d user batches, K1 (bf16 fixed side) T=2 %.3f ms, T=10 '
+        '%.3f ms: marginal %.2f us/batch  [%s]' % (nb, ts[2], ts[10],
+                                                  out['K1'], card))
+    return out
+
+
+def phase8(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz']):
+    """The probe tools: P1 and P2 against their plain versions, then the
+    tools' runs at full shape (the main path of this phase: the launch
+    counts are set to 0 before it and read after)."""
+    from mfrec_tpu_torch.ops import probe_kernel as p2
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.half_pass_old_kernel import half_pass_old
+    from mfrec_tpu_torch.tools import ab_kernel, bench_data
+    from mfrec_tpu_torch.tools import kernel_probe as kp
+    card = card_line()
+    log('phase 8: P1 against its plain version (T=%d, f32 factors, bf16 '
+        'fixed side; K1\'s tolerances)' % P1_T)
+    t0 = time.perf_counter()
+    W = 128
+    lay = {a: stream_layout(U, I, nnz, a, W) for a in ('user', 'item')}
+    Paug, Qaug = _aug_factors(U, I, 64, W, seed=1)
+    side = {'user': (Paug, Qaug), 'item': (Qaug, Paug)}
+    hb, hn = _longest_run_batch(lay['item'])
+    sl = {a: stream_layout(*REDUCED, a, W) for a in ('user', 'item')}
+    sP, sQ = _aug_factors(REDUCED[0], REDUCED[1], 64, W, seed=2)
+    p1 = [p1_layout_case('main first16 user', *side['user'], lay['user'],
+                         'user', batches=range(16), iters=5, plain_iters=2),
+          p1_layout_case('main hottest item batch (%d, run %d)' % (hb, hn),
+                         *side['item'], lay['item'], 'item', batches=[hb]),
+          p1_random_case('edge k=1', 1, W),
+          p1_random_case('edge k=130 (f32 dot)', 130, W, seed=1),
+          p1_random_case('edge k=256', 256, W, seed=2),
+          p1_random_case('edge W=1', 66, 1, seed=3),
+          p1_random_case('edge everything masked', 66, W, zero_mask=True),
+          p1_layout_case('reduced whole half-pass user', sP, sQ, sl['user'],
+                         'user'),
+          p1_layout_case('reduced whole half-pass item', sQ, sP, sl['item'],
+                         'item')]
+    log('phase 8: P2 against its plain version (every variant, a chain of 3 '
+        'calls at the probe\'s shape, T=10)')
+    data = kp.probe_data('cuda')
+    p2r = [p2_case('full k=66', data, 'full', 66, iters=20, plain_iters=5)]
+    p2r += [p2_case('%s k=66' % v, data, v, 66) for v in sorted(p2.VARIANTS)
+            if v != 'full']
+    p2r += [p2_case('full k=%d' % k, data, 'full', k) for k in (64, 128)]
+    p2r.append(p2_case('full k=66 bf16 fixed rows', data, 'full', 66,
+                       ff16=True))
+    bad = [r['case'] for r in p1 + p2r if not r['ok']]
+    if bad:
+        raise SystemExit('phase 8 failed: %s' % bad)
+    log('  checks done in %.1f s' % (time.perf_counter() - t0))
+    # the tools at full shape
+    half_pass_old.launches = p2.probe_chain.launches = half_pass.launches = 0
+    t0 = time.perf_counter()
+    u, i, v = bench_data.make_data(U, I, nnz)
+    log('phase 8: tools.ab_kernel at the JAX bench\'s data shape (%d x %d, '
+        '%d raw draws), rank 64, batch 16384, W=128, T=%d (data %.1f s)'
+        % (U, I, len(v), P1_T, time.perf_counter() - t0))
+    ab = ab_kernel.run_ab(u, i, v, U, I, log=lambda x: log('  %s  [%s]'
+                                                           % (x, card)))
+    del u, i, v
+    last = (ab['rmse_old'][-1], ab['rmse_new'][-1])
+    log('  final rmse old %.4f, new %.4f against the bias-only floor %.4f'
+        % (last[0], last[1], ab['floor']))
+    if not (np.isfinite(ab['rmse_old'] + ab['rmse_new']).all()
+            and max(last) < ab['floor']):
+        raise SystemExit('the A/B epochs do not train below the bias-only '
+                         'floor: %s vs %.4f' % (last, ab['floor']))
+    probe = {}
+    for mode in ('', 'fix', 'all2d'):
+        log('phase 8: tools.kernel_probe mode %r (3 reps, us per batch)'
+            % mode)
+        probe[mode] = kp.probe_mode(data, mode, reps=3, iters=3,
+                                    log=lambda x: log('  %s  [%s]'
+                                                      % (x, card)))
+    log('phase 8: tools.kernel_probe mode \'hiT\' (K1)')
+    hit = kp.hit_mode(data, reps=2, iters=3,
+                      log=lambda x: log('  %s  [%s]' % (x, card)))
+    log('phase 8: full with f32 and with bf16 fixed rows (K1\'s reads)')
+    ff16 = p2_ff_dtype(data, card)
+    log('phase 8: the variants over real batches (K1\'s throughput regime)')
+    thr = p2_throughput(lay['user'], Paug, Qaug, card)
+    launches = {'p1': half_pass_old.launches, 'p2': p2.probe_chain.launches,
+                'k1': half_pass.launches}
+    log('  launches during the tools\' runs: P1 %d, P2 %d, K1 %d'
+        % (launches['p1'], launches['p2'], launches['k1']))
+    if min(launches.values()) == 0:
+        raise SystemExit('a tool never launched its kernel: %s' % launches)
+    return dict(p1=p1, p2=p2r, ab=ab, probe=probe, hit=hit, thr=thr,
+                ff16=ff16, launches=launches)
+
+
+def probe_entries(p8):
+    """P1's and P2's entries of the kernels line."""
+    if not p8:
+        return []
+    m1, f2 = p8['p1'][0], p8['p2'][0]
+    ab = p8['ab']
+    full = p8['probe'][''][('full', 66, 8192)]
+    return [{
+        'name': 'half_pass_old (P1, round-2 batch step for the A/B tool)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/half_pass_old.cu',
+        'replaces': 'tools/ab_kernel.py:33',
+        'launches': p8['launches']['p1'],
+        'max_abs_err': max(r['max_abs_err'] for r in p8['p1']),
+        'ms': m1['ms'], 'plain_ms': m1['plain_ms'],
+        'bound_ms': m1['bound_ms'], 'bound_by': m1['bound_by'],
+        'library_ms': None,
+        'shape': 'first 16 batches of the ML-10M user half-pass: B=16384 '
+                 'W=128 k=66 T=8',
+        'ab_epoch_s_old': float(np.median(ab['old'])),
+        'ab_epoch_s_new': float(np.median(ab['new'])),
+        'ab_speedup_pct': ab['speedup']}, {
+        'name': 'probe (P2, deletion-probe variants of the batch step)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/probe.cu',
+        'replaces': 'tools/kernel_probe.py:89',
+        'launches': p8['launches']['p2'],
+        'max_abs_err': max(r['max_abs_err'] for r in p8['p2']),
+        'ms': f2['ms'], 'plain_ms': f2['plain_ms'],
+        'bound_ms': f2['bound_ms'], 'bound_by': f2['bound_by'],
+        'library_ms': None,
+        'shape': "one call of 'full' at the probe's shape: B=16384 W=128 "
+                 'k=66 T=10',
+        'marginal_sweep_us_full': 1e6 * full['marg'],
+        'marginal_sweep_us_full_f32_vs_bf16_fixed_rows': p8['ff16'],
+        'marginal_sweep_us_k1': 1e6 * p8['hit']['marg_8_32'],
+        'marginal_sweep_us_real_batches': p8['thr']}]
+
+
 def k3_bound(B, I, k):
     '''K3's least time at one shape: 2*B*I*k f32 FMA operations over the
     FP32 peak against P, Q, the biases and the result moved once.'''
@@ -1968,7 +2336,7 @@ def k4_entry(k4, svdpp, fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
-    ap.add_argument('--phases', default='1234567',
+    ap.add_argument('--phases', default='12345678',
                     help='which phases to run (default: all)')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, 'mfrec_tpu_torch')):
@@ -1989,6 +2357,7 @@ def main(argv=None):
     als = phase5() if '5' in args.phases else {}
     svdpp = phase6() if '6' in args.phases else {}
     fn = phase7() if '7' in args.phases else {}
+    p8 = phase8() if '8' in args.phases else {}
     if k3_recs:
         k3_ms, k3_by = k3_bound(1024, 360_000, 64)
         main1 = k1_recs[0]
@@ -2019,8 +2388,10 @@ def main(argv=None):
             'bound_ms_half_pass_user': k1_time['user']['bound_ms'],
             'bound_ms_half_pass_item': k1_time['item']['bound_ms'],
             'ms_longest_chain': k1_time['chain']['ms'],
-            'epoch_s': train.get('epoch_s')}] + k2_entry(k2_recs, als)
-            + k4_entry(k4, svdpp, fn)}))
+            'epoch_s': train.get('epoch_s'),
+            'launches_phase8': p8.get('launches', {}).get('k1')}]
+            + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)
+            + probe_entries(p8)}))
     log(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -38,12 +38,15 @@ class FNState(NamedTuple):
 
 
 def init_fn_state(nbr_users, nbr_items, k, feature_init=0.1, seed=0,
-                  mu=0.0, device='cpu'):
+                  mu=0.0, device='cuda'):
     '''Q, X, Y ~ N(0, feature_init) and zero biases, drawn from a
     ``torch.Generator`` seeded with ``seed`` (Q, then X, then Y), as the
     JAX package draws them from ``PRNGKey(seed)``.  The two generators
     give different numbers from the same seed: to compare the packages,
-    hand both the same state.'''
+    hand both the same state.  ``device``: 'cuda' (default; raises
+    without a card) or 'cpu', as the models take it.'''
+    from mfrec_tpu_torch.models.base import resolve_device
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     f = float(feature_init)
 

@@ -261,22 +261,49 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
     if dev.type != 'cuda':
         raise ValueError('half_pass runs on cuda or cpu tensors, not %s'
                          % dev)
-    if segments is None:
+    lib = _library()
+    k = F_upd.shape[1]
+
+    def tail(sse_rows):
+        seg = segments
+        return (seg.seg_ptr.data_ptr(), seg.seg_cnt.data_ptr(),
+                seg.ent_fix.data_ptr(), seg.ent_r.data_ptr(),
+                seg.ent_m.data_ptr(), lrv.data_ptr(), regv.data_ptr(),
+                float(mu), k, int(inner_steps), float(lo_r), float(hi_r),
+                int(bool(clamp_pred)), int(bool(row_mean)),
+                int(bool(bias_none)), int(link == 'logistic'),
+                int(k <= 128), sse_rows.data_ptr())
+
+    sse, launched = run_segments(F_upd, F_fix, segments, lib.half_pass_launch,
+                                 lib.half_pass_error_string, 'half_pass',
+                                 tail)
+    half_pass.launches += launched
+    return sse
+
+
+def run_segments(F_upd, F_fix, seg, launch, error_string, name, tail):
+    '''Launch a kernel of K1's row design (``csrc/half_pass.cu``,
+    ``csrc/half_pass_old.cu``) over segment table ``seg``:
+    ``launch(*head, begin, end, wide, *tail(sse_rows), stream)`` once per
+    block width, the long rows' 32-warp blocks on a second stream joined
+    back before it returns.  Checks ``seg`` against the factors; raises
+    on a CUDA error at launch.  Returns (SSE as a 0-dim f32, whether it
+    launched: not when nothing is masked in).'''
+    dev = F_upd.device
+    if seg is None:
         raise ValueError('a CUDA half-pass needs the segment table '
                          '(build_segments)')
-    seg = segments
-    for name in Segments._fields[:8]:
-        t = getattr(seg, name)
+    for field in Segments._fields[:8]:
+        t = getattr(seg, field)
         if t.device != dev or not t.is_contiguous():
             raise ValueError('segments.%s must be contiguous on %s'
-                             % (name, dev))
+                             % (field, dev))
     k = F_upd.shape[1]
     if seg.max_row >= F_upd.shape[0] or seg.max_fix >= F_fix.shape[0]:
         raise ValueError('the segment table reads past F_upd or F_fix')
     n_blocks = int(seg.blk_row.shape[0])
     if n_blocks == 0:                    # nothing masked in: no launch
-        return torch.zeros((), dtype=torch.float32, device=dev)
-    lib = _library()
+        return torch.zeros((), dtype=torch.float32, device=dev), False
     n_wide = seg.n_wide if k <= WIDE_MAX_K else 0
     with torch.cuda.device(dev):
         main = torch.cuda.current_stream(dev)
@@ -284,13 +311,7 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
         head = (F_upd.data_ptr(), F_fix.data_ptr(),
                 int(F_fix.dtype == torch.bfloat16), seg.blk_row.data_ptr(),
                 seg.blk_seg0.data_ptr(), seg.blk_seg1.data_ptr())
-        tail = (seg.seg_ptr.data_ptr(), seg.seg_cnt.data_ptr(),
-                seg.ent_fix.data_ptr(), seg.ent_r.data_ptr(),
-                seg.ent_m.data_ptr(), lrv.data_ptr(), regv.data_ptr(),
-                float(mu), k, int(inner_steps), float(lo_r), float(hi_r),
-                int(bool(clamp_pred)), int(bool(row_mean)),
-                int(bool(bias_none)), int(link == 'logistic'),
-                int(k <= 128), sse_rows.data_ptr())
+        rest = tail(sse_rows)
         side = _side_stream(dev) if n_wide else None
         grids = [(0, n_wide, 1, side)] if n_wide else []
         if n_wide < n_blocks:
@@ -298,16 +319,14 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
         if side is not None:
             side.wait_stream(main)       # its inputs are written on main
         for begin, end, wide, stream in grids:
-            rc = lib.half_pass_launch(*head, begin, end, wide, *tail,
-                                      stream.cuda_stream)
+            rc = launch(*head, begin, end, wide, *rest, stream.cuda_stream)
             if rc != 0:
                 raise RuntimeError(
-                    'half_pass kernel launch failed: CUDA error %d (%s)'
-                    % (rc, lib.half_pass_error_string(rc).decode()))
+                    '%s kernel launch failed: CUDA error %d (%s)'
+                    % (name, rc, error_string(rc).decode()))
         if side is not None:
             main.wait_stream(side)
-    half_pass.launches += 1
-    return sse_rows.sum()
+    return sse_rows.sum(), True
 
 
 half_pass.launches = 0

@@ -9,7 +9,7 @@ Port of the default path of ``mfrec_tpu/ops/sgd_mf.py``:
   permutation is the same) and cut into batches of B ratings whose keys
   span at most W rows;
 * ``augment_factors`` / ``split_factors`` (``:468-487``), numpy or torch;
-* ``clamp`` (``:98``);
+* ``init_state`` (``:82-95``) and ``clamp`` (``:98``);
 * ``make_alternating_epoch`` (``:491-868``): a P half-pass over the
   user-sorted stream (Q fixed), then a Q half-pass over the item-sorted
   stream (P fixed), each batch running T gradient sweeps on its window;
@@ -58,6 +58,38 @@ class MFState(NamedTuple):
     bu: torch.Tensor
     bi: torch.Tensor
     mu: torch.Tensor
+
+
+def init_state(nbr_users, nbr_items, k, feature_init=0.1, mode='constant',
+               seed=0, dtype=torch.float32, device='cuda'):
+    '''Factor state as ``mfrec_tpu/ops/sgd_mf.py:82-95`` makes it:
+    ``'constant'`` fills P and Q with ``feature_init`` (the reference SGD
+    init), ``'normal'`` draws them from N(0, feature_init) (the reference
+    KMF init) with a ``torch.Generator`` seeded with ``seed`` (P, then
+    Q).  ``jax.random`` gives other numbers from the same seed: to
+    compare the packages, hand both the same factors.  Biases and mu are
+    zero.  ``device``: 'cuda' (default; raises without a card) or
+    'cpu'.'''
+    from mfrec_tpu_torch.models.base import resolve_device
+    dev = resolve_device(device)
+    if mode == 'constant':
+        P = torch.full((nbr_users, k), feature_init, dtype=dtype)
+        Q = torch.full((nbr_items, k), feature_init, dtype=dtype)
+    elif mode == 'normal':
+        gen = torch.Generator().manual_seed(int(seed))
+        f = float(feature_init)
+        P = (torch.randn((nbr_users, k), generator=gen) * f).to(dtype)
+        Q = (torch.randn((nbr_items, k), generator=gen) * f).to(dtype)
+    else:
+        raise ValueError("mode must be 'constant' or 'normal', got %r"
+                         % (mode,))
+
+    def z(n):
+        return torch.zeros((n,), dtype=dtype, device=dev)
+
+    return MFState(P=P.to(dev), Q=Q.to(dev), bu=z(nbr_users),
+                   bi=z(nbr_items), mu=torch.zeros((), dtype=dtype,
+                                                   device=dev))
 
 
 def clamp(x, lo=1.0, hi=5.0):

@@ -180,8 +180,10 @@ def test_init_and_aggregates():
     '''``init_fn_state`` draws Q, X, Y ~ N(0, f) from its seed (the same
     seed, the same state); ``user_aggregates`` against the JAX function
     on a handed-in state.'''
-    s1 = fn_ops.init_fn_state(5, 30, 4, feature_init=0.2, seed=7, mu=3.5)
-    s2 = fn_ops.init_fn_state(5, 30, 4, feature_init=0.2, seed=7, mu=3.5)
+    s1 = fn_ops.init_fn_state(5, 30, 4, feature_init=0.2, seed=7, mu=3.5,
+                              device='cpu')
+    s2 = fn_ops.init_fn_state(5, 30, 4, feature_init=0.2, seed=7, mu=3.5,
+                              device='cpu')
     assert all(torch.equal(x, y) for x, y in zip(s1, s2))
     assert 0.1 < float(s1.Q.std()) < 0.3 and float(s1.mu) == 3.5
     st = _state(12, 30, 4, seed=2)

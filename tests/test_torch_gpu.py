@@ -1,4 +1,4 @@
-'''K3, K1, K2 and K4 on a CUDA device: each kernel against its plain
+'''K3, K1, K2, K4, P1 and P2 on a CUDA device: each kernel against its plain
 version, and a CUDA model against the same model on the CPU.  Every case
 is marked ``gpu`` and skips without a card.  This file imports no JAX,
 so on a GPU host without it run it alone, without the suite's conftest:
@@ -15,7 +15,8 @@ summation order can flip one bf16 rounding of the window read.  K2:
 atol 1e-4, rtol 1e-3 (tests/test_als.py:303, f32 sums in another
 order).  K4: counts exactly, sums atol 1e-5 + rtol 1e-5 (the same bf16
 rows summed in f32 in another order).  The SVD++ and FN epochs of a CUDA
-model against a CPU model's: K1's tolerances.'''
+model against a CPU model's, P1 and P2 and the A/B tool's 'old' epoch:
+K1's tolerances.'''
 import numpy as np
 import pytest
 import torch
@@ -496,3 +497,104 @@ def test_cuda_models_train_svdpp_and_fn(cuda):
     idx, _ = fn.recommend_batch(np.arange(8), 5,
                                 predictor='predict_rating_with_bias')
     assert idx.shape == (8, 5)
+
+
+@pytest.mark.parametrize('k', [1, 8, 66, 130, 256])
+def test_half_pass_old_kernel_matches_plain(cuda, k):
+    '''P1 against its plain version (K1's tolerances), a 32-warp row at
+    k=66; the per-batch entry with the JAX signature too.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import half_pass_old_kernel as p1
+    nb, B, W, n_upd, n_fix, T = 4, 2048, 64, 400, 300, 8
+    fix, r, m, kl, lo = _k1_batches(nb, B, W, n_upd, n_fix, seed=k)
+    if k == 66:
+        kl[:3, :1500] = 0                  # one row of 4,500 ratings
+        kl.sort(axis=1)
+        m[:3, :1500] = 1                   # all masked in
+        lo[:3] = lo[0]
+    rng = np.random.default_rng(k)
+    F0 = torch.from_numpy(
+        rng.normal(0, 0.1, (n_upd, k)).astype(np.float32)).to(cuda)
+    Ffix = torch.from_numpy(rng.normal(0, 0.1, (n_fix, k)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    lrv = torch.full((k,), 0.15, device=cuda)
+    regv = torch.full((k,), 0.02, device=cuda)
+    seg = hk.build_segments(fix, r, m, kl, lo, W, cuda)
+    assert seg.n_wide == (1 if k == 66 else 0)
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in (fix, r, m, kl, lo))
+    Fk, Fp = F0.clone(), F0.clone()
+    before = p1.half_pass_old.launches
+    sse_k = p1.half_pass_old(Fk, Ffix, tb, W, lrv, regv, 3.4, T,
+                             segments=seg)
+    torch.cuda.synchronize()
+    assert p1.half_pass_old.launches == before + 1
+    sse_p = p1.half_pass_old_ref(Fp, Ffix, tb, W, lrv, regv, 3.4, T)
+    torch.testing.assert_close(Fk, Fp, **K1_TOL)
+    assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert float((Fk - F0).abs().max()) > 0
+    win = F0[int(lo[0]):int(lo[0]) + W].contiguous()
+    args = (Ffix[tb[0][0].long()].contiguous(), tb[1][0], tb[2][0], tb[3][0],
+            lrv, regv, 3.4, W, 1024, T)
+    got, sse_b = p1.half_pass_batch_old(win, *args)
+    want, sse_w = p1.half_pass_batch_old_ref(win, *args)
+    torch.testing.assert_close(got, want, **K1_TOL)
+    assert abs(float(sse_b) - float(sse_w)) <= 1e-3 * float(sse_w)
+
+
+@pytest.mark.parametrize('k', [8, 66, 128])
+def test_probe_kernel_matches_plain(cuda, k):
+    '''Every P2 variant ('full' also on bf16 fixed rows), a chain of 3
+    calls on 2 problems, against its plain version: the windows at K1's
+    tolerances, each entry's change within 1 % of the largest change (the
+    no_acc variants only shrink the window); some m = 0.'''
+    from mfrec_tpu_torch.ops import probe_kernel as p2
+    rng = np.random.default_rng(k)
+    G, B, W, T = 2, 1024, 128, 3
+    m = (rng.random((G, B)) > 0.1).astype(np.float32)
+    data = [rng.normal(0, 0.3, (G, W, k)), rng.normal(0, 0.3, (G, B, k)),
+            rng.uniform(1, 5, (G, B)), m,
+            np.sort(rng.integers(0, W, (G, B)), axis=1)]
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int32 if j == 4
+                                               else np.float32)).to(cuda)
+         for j, a in enumerate(data)]
+    lrv = torch.full((k,), 0.1, device=cuda)
+    regv = torch.full((k,), 0.02, device=cuda)
+    ff16 = [t[0], t[1].to(torch.bfloat16)] + t[2:]
+    for variant, args in [(v, t) for v in sorted(p2.VARIANTS)] + \
+            [('full', ff16)]:
+        before = p2.probe_chain.launches
+        got, sse = p2.probe_chain(*args, lrv, regv, variant, T, n_chain=3,
+                                  ch=256)
+        torch.cuda.synchronize()
+        assert p2.probe_chain.launches == before + 1
+        want, sse_w = p2.probe_chain_ref(*args, lrv, regv, variant, T,
+                                         n_chain=3, ch=256)
+        torch.testing.assert_close(got, want, **K1_TOL, msg=variant)
+        moved = float((want - t[0]).abs().max())
+        assert moved > 0, variant
+        torch.testing.assert_close(got - t[0], want - t[0], rtol=0,
+                                   atol=1e-2 * moved, msg=variant)
+        assert abs(float(sse) - float(sse_w)) <= 1e-3 * float(sse_w), variant
+
+
+def test_cuda_old_epoch_matches_cpu(cuda):
+    '''The A/B tool's 'old' epoch on the card (P1) against the same epoch
+    on CPU tensors (P1's plain version), from the same factors.'''
+    from mfrec_tpu_torch.ops import half_pass_old_kernel as p1
+    from mfrec_tpu_torch.tools import ab_kernel, bench_data
+    u, i, v = bench_data.make_data(500, 300, 20000)
+    _, bu, bi = bench_data.bias_floor_rmse(u, i, v, 500, 300)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        lay = ab_kernel.make_layouts(u, i, v, dev, batch=4096)
+        ep, (P, Q) = ab_kernel.build('old', lay, bu, bi, 500, 300, 16, 8,
+                                     seed=1)
+        before = p1.half_pass_old.launches
+        for _ in range(2):
+            P, Q, rmse = ep(P, Q, float(v.mean()), *lay)
+        assert p1.half_pass_old.launches == before + (4 if dev == 'cuda'
+                                                      else 0)
+        out[dev] = (P.cpu(), Q.cpu(), float(rmse))
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], **K1_TOL)
+    torch.testing.assert_close(out['cuda'][1], out['cpu'][1], **K1_TOL)
+    assert out['cuda'][2] == pytest.approx(out['cpu'][2], rel=1e-3)

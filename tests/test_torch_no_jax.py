@@ -1,6 +1,7 @@
 '''The port stands without JAX: importing it (in a fresh interpreter --
 this test session has jax loaded already) pulls in neither jax nor
-mfrec_tpu, and no file of the port or of chip_smoke.py imports them.'''
+mfrec_tpu, nor the JAX bench (``bench``) or tools (``tools``), and no
+file of the port or of chip_smoke.py imports them.'''
 import ast
 import json
 import os
@@ -27,7 +28,13 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.ops.als', 'mfrec_tpu_torch.ops.cg_kernel',
            'mfrec_tpu_torch.models.wrmf', 'mfrec_tpu_torch.eval.metrics',
            'mfrec_tpu_torch.ops.window_agg_kernel', 'mfrec_tpu_torch.ops.fn',
-           'mfrec_tpu_torch.models.fn']
+           'mfrec_tpu_torch.models.fn',
+           'mfrec_tpu_torch.ops.half_pass_old_kernel',
+           'mfrec_tpu_torch.ops.probe_kernel', 'mfrec_tpu_torch.tools',
+           'mfrec_tpu_torch.tools.bench_data',
+           'mfrec_tpu_torch.tools.ab_kernel',
+           'mfrec_tpu_torch.tools.kernel_probe']
+FORBIDDEN = ('jax', 'jaxlib', 'mfrec_tpu', 'bench', 'tools')
 
 
 def _env():
@@ -39,8 +46,7 @@ def _env():
 _PROBE = '''
 import importlib, json, sys
 def bad():
-    return sorted(m for m in sys.modules if m.split(".")[0] in
-                  ("jax", "jaxlib", "mfrec_tpu"))
+    return sorted(m for m in sys.modules if m.split(".")[0] in %r)
 out = {}
 for name in %r:
     importlib.import_module(name)
@@ -53,7 +59,8 @@ print(json.dumps(out))
 def imported():
     '''One fresh interpreter imports the modules in turn and reports the
     jax / mfrec_tpu modules loaded after each.'''
-    res = subprocess.run([sys.executable, '-c', _PROBE % (MODULES,)],
+    res = subprocess.run([sys.executable, '-c',
+                          _PROBE % (FORBIDDEN, MODULES)],
                          capture_output=True, text=True, env=_env(),
                          cwd=str(REPO), timeout=120)
     assert res.returncode == 0, res.stderr
@@ -79,7 +86,7 @@ def test_no_port_file_imports_jax_or_mfrec_tpu():
     files = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py']
     assert len(files) > 10
     for f in files:
-        bad = _imported_roots(f) & {'jax', 'jaxlib', 'mfrec_tpu'}
+        bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, (f, bad)
 
 
