@@ -7,18 +7,27 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --phases 125  # ... and the ALS slice
     python3 chip_smoke.py --phases 1267 # ... and the SVD++ and FN slice
     python3 chip_smoke.py --phases 18   # ... the probe tools (P1, P2)
+    python3 chip_smoke.py --ab k1 A B B A   # K1 in checkouts A and B
+    python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
+    python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
-         per source, started together), with ``-Xptxas -v``'s report.
+         per source, K1's four builds included, started together), with
+         ``-Xptxas -v``'s report.
 Phase 2  each kernel against its plain PyTorch version on the card:
          K3 at the serving and retrieval-bench shapes plus edge shapes;
          K1 on real batches of the ML-10M-shape layouts (B=16384, W=128,
-         k=66, T=128), on edge cases and on a whole half-pass at a
-         reduced size; K4 at the JAX call's shape on real ML-10M-layout
-         batches (B=16384, W=128, k=66), at the SVD++/FN item-step shape
-         (W=512), on a whole W=512 layout (the phase aggregation) and on
-         edge cases.  Median times of kernel and plain version.
+         k=66) in each path's build (SGD bf16 T=128, SVD++ and FN f32),
+         the most-rated item's whole chain (a cluster row), edge cases
+         and a whole half-pass at a reduced size, then whole half-passes
+         and the longest chain timed; K4's per-call sum at the JAX
+         call's shape on real ML-10M-layout batches (B=16384, W=128,
+         k=66; a user batch and the hottest item batch), at W=512, on a
+         whole W=512 layout (the phase aggregation), the fused SVD++ /
+         FN item step over the W=512 item layout against its plain
+         version and the per-batch loop it replaces, and edge cases.
+         Median times of kernel and plain version.
 Phase 3  the serving slice end to end at the ML-10M shape (69,878 users x
          10,677 items, rank 64): model -> checkpoint -> reload ->
          ``RecommenderServer`` ('xla' then 'fast' retrieval) answering
@@ -44,7 +53,10 @@ Phase 6  the SVD++ tier end to end at the ML-10M shape:
          ``GDRecommender.feature_training_implicit()`` through K1 and K4
          (W=512, batch 16384, T=32, f32 fixed side), timed as phase 4
          is, every epoch's RMSE against the bias-only floor, K1's and
-         K4's launch counts, one epoch split by phase (CUDA events) with
+         K4's launch counts (3 K4 launches per epoch: two phase
+         aggregations and the item step), one epoch split by phase
+         (CUDA events; the item step's time on the card and to enqueue)
+         with
          the device busy share (torch.profiler), the epoch on the card
          against the same epoch on CPU tensors at 3,000 x 700, and the
          agg-only tier (K4 per batch and sweep) there too.
@@ -61,6 +73,12 @@ Phase 8  the probe tools: P1 and P2 against their plain versions on the
          'hiT' (K1), and the deletion variants over the first 16 ML-10M
          user batches (K1's throughput regime), with P1's, P2's and
          K1's launch counts over that run.
+
+``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
+the hot item's chain, the logistic link's item half-pass and chain) or
+K4's per-call sum (CUDA events and device time beside ``index_add_``) in
+each checkout named, each in a process of its own with its own modules
+and kernel builds, and prints one ``AB <mode> {...}`` JSON line each.
 
 Any failure exits non-zero.  On success the line before the last is the
 kernels' JSON summary and the last line is
@@ -111,6 +129,11 @@ ALS_PARAMS = {'nbr_features': 64, 'feature_init': 0.1,
 # rows, in f32 in another order
 K4_ATOL = 1e-5
 K4_RTOL = 1e-5
+# the item step (step_aggregate) against its plain version: within K4_ATOL
+# plus 1 % of the largest change.  A row's first segment sums the same
+# bf16 terms in another f32 order; the row then differs by an ulp, which
+# can flip one bf16 rounding of a later segment's term (2^-9 of it)
+STEP_UPD_TOL = 1e-2
 # phase 6: phase 4's model settings, the SVD++ tier's defaults otherwise
 # (W=512, batch 16384, T=32, lr 0.15); phase 7: bench.py's FN operating
 # point (bench.py:619, 633-646) at the model's defaults (W=512, T=64)
@@ -163,6 +186,25 @@ def timed_ms(fn, iters):
     return float(np.median(times))
 
 
+def device_ms(fn, n=20):
+    '''Device time of one call: the CUDA kernels' own time over ``n``
+    calls under torch.profiler, per call (no host time: for calls of a
+    few microseconds, whose host side CUDA events would measure).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0.0))
+    return total / 1e3 / n
+
+
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
@@ -175,12 +217,14 @@ def phase1():
     log('nvcc: %s' % nv.strip().splitlines()[-1])
     log('card: %s' % card_line())
     t0 = time.perf_counter()
-    names = ('topn', 'half_pass', 'pcg', 'window_agg', 'half_pass_old',
-             'probe')
+    k1 = tuple(half_pass_kernel.LIBRARIES.values())
+    names = ('topn',) + k1 + ('pcg', 'window_agg', 'half_pass_old', 'probe')
     _cuda_build.build(names)
-    for mod in (topn_kernel, half_pass_kernel, cg_kernel, window_agg_kernel,
+    for mod in (topn_kernel, cg_kernel, window_agg_kernel,
                 half_pass_old_kernel, probe_kernel):
         mod._library()
+    for name in k1:
+        half_pass_kernel._library(name)
     log('built %s in %.1f s' % (', '.join('csrc/%s.cu' % x for x in names),
                                 time.perf_counter() - t0))
     for name in names:
@@ -354,31 +398,43 @@ def roofline_ms(ops, nbytes):
         'operations' if t_ops >= t_bytes else 'bytes'
 
 
-def k1_bound(seg, k, T, flops=4.0):
+def k1_bound(seg, k, T, flops=4.0, fix_bytes=2):
     '''The least time the card could take for a K1 launch over
     ``seg``: the larger of its f32 operations (about ``flops``*k per
     rating and sweep; 4 for K1: dot, eff*ff, accumulate) over the FP32
     peak and the bytes it must move (the segment table, each fixed row
-    once in bf16, each updated row read and written once) over the
-    memory rate.'''
+    once in bf16 -- ``fix_bytes`` 4 for f32 --, each updated row read and
+    written once) over the memory rate.'''
     import torch
     n = int(seg.ent_r.numel())
     nb = int(seg.blk_row.numel())
     ns = int(seg.seg_cnt.numel())
     nfix = int(torch.unique(seg.ent_fix).numel())
     ops = flops * k * T * n
-    nbytes = (12.0 * n + 12.0 * nb + 8.0 * ns + 8.0 * k * nb + 2.0 * k * nfix
-              + 8.0 * k)
+    nbytes = (12.0 * n + 12.0 * nb + 8.0 * ns + 8.0 * k * nb
+              + fix_bytes * k * nfix + 8.0 * k)
     return roofline_ms(ops, nbytes)
+
+
+# the fixed side's type and the column rates of each path's K1 launches:
+# SGD (bf16 fixed rows, biases fixed), SVD++ (f32), FN (f32, learned
+# biases, the user half-pass's factor columns frozen)
+# the logistic link's options (KMF's half-passes: no clamp, no mu)
+LOGISTIC = dict(link='logistic', clamp_pred=False, mu=0.0)
+K1_PATHS = {'sgd': dict(ff32=False, learned=False, T=128),
+            'svdpp': dict(ff32=True, learned=False, T=32),
+            'fn': dict(ff32=True, learned=True, T=64)}
 
 
 def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
             lr=0.15, iters=0, plain_iters=1, zero_mask=False, device='cuda',
-            **opts):
+            ff32=False, learned=False, **opts):
     '''K1 against its plain version on the card, in the working type
-    (f32 factors, bf16 fixed side), over ``batches`` of a
-    ``sorted_pass_layout`` (all of them by default).  Returns its
-    record.'''
+    (f32 factors, bf16 fixed side, or f32 with ``ff32``), over
+    ``batches`` of a ``sorted_pass_layout`` (all of them by default), a
+    second launch from the same factors bit-identical.  ``learned``: the
+    FN path's rates (learned biases; on the user side the factor columns
+    frozen).  Returns its record.'''
     import torch
     from mfrec_tpu_torch.ops import sgd_mf
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass, \
@@ -393,12 +449,17 @@ def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
     pl = sgd_mf.PassLayout(tuple(arrs) + (W,), axis, dev, segments=True)
     k = F_upd.shape[1]
     lrv, regv = (torch.from_numpy(a).to(dev) for a in sgd_mf.column_rates(
-        k - 2, axis == 'user', lr, 0.02, 0.02, 0.15, 0.15, 0.01, 0.01))
+        k - 2, axis == 'user', lr, 0.02, 0.02, 0.15, 0.15, 0.01, 0.01,
+        learned, freeze_user_factors=learned))
     F0 = torch.from_numpy(F_upd).to(dev)
-    Ffix = torch.from_numpy(F_fix).to(dev).to(torch.bfloat16)
+    Ffix = torch.from_numpy(F_fix).to(dev)
+    if not ff32:
+        Ffix = Ffix.to(torch.bfloat16)
     args = (Ffix, pl.batches(), W, lrv, regv, mu, T)
     Fk = F0.clone()
     sse_k = float(half_pass(Fk, *args, segments=pl.segments, **opts))
+    again = F0.clone()
+    sse_a = float(half_pass(again, *args, segments=pl.segments, **opts))
     Fp = F0.clone()
     sse_p = float(half_pass_ref(Fp, *args, **opts))
     diff = (Fk - Fp).abs()
@@ -408,18 +469,21 @@ def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
     moved = float((Fk - F0).abs().max())
     finite = bool(torch.isfinite(Fk).all()) and np.isfinite(sse_k)
     ok = ok_w and finite and sse_err <= K1_SSE_RTOL and \
-        ((moved == 0.0) if zero_mask else (moved > 0.0))
+        ((moved == 0.0) if zero_mask else (moved > 0.0)) and \
+        bool(torch.equal(again, Fk)) and sse_a == sse_k
+    del again
     seg = pl.segments
     rec = {'case': name, 'k': k, 'T': T, 'batches': pl.nbr_batches,
            'ratings': int(seg.ent_r.numel()), 'rows': int(seg.blk_row.numel()),
            'longest_row': seg.longest, 'ok': ok, 'max_abs_err': err,
-           'sse_rel_err': sse_err}
+           'sse_rel_err': sse_err, 'fixed_side': 'f32' if ff32 else 'bf16'}
     if iters:
         rec['ms'] = timed_ms(lambda: half_pass(
             Fk, *args, segments=pl.segments, **opts), iters)
         rec['plain_ms'] = timed_ms(lambda: half_pass_ref(Fp, *args, **opts),
                                    plain_iters)
-        rec['bound_ms'], rec['bound_by'] = k1_bound(seg, k, T)
+        rec['bound_ms'], rec['bound_by'] = k1_bound(
+            seg, k, T, fix_bytes=4 if ff32 else 2)
     log('  %-30s ok=%s max_abs_err=%.3g sse_rel_err=%.3g (%d ratings, %d '
         'rows)%s' % (name, ok, err, sse_err, rec['ratings'], rec['rows'],
                      ' kernel %.3f ms, plain %.3f ms, bound %.3f ms'
@@ -429,9 +493,10 @@ def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
 
 
 def k1_kernel_ms(F_upd, F_fix, layout, axis, iters=3, only_row=None, T=128,
-                 mu=3.5, device='cuda'):
+                 mu=3.5, device='cuda', **opts):
     '''Device time of one K1 launch over a whole layout (or over
-    ``only_row``'s ratings alone: that row's chain of segments).'''
+    ``only_row``'s ratings alone: that row's chain of segments), bf16
+    fixed rows; ``opts`` go to ``half_pass`` (the link).'''
     import torch
     from mfrec_tpu_torch.ops import sgd_mf
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
@@ -448,7 +513,7 @@ def k1_kernel_ms(F_upd, F_fix, layout, axis, iters=3, only_row=None, T=128,
     F = torch.from_numpy(F_upd).to(dev)
     Ffix = torch.from_numpy(F_fix).to(dev).to(torch.bfloat16)
     ms = timed_ms(lambda: half_pass(F, Ffix, pl.batches(), W, lrv, regv, mu,
-                                    T, segments=pl.segments), iters)
+                                    T, segments=pl.segments, **opts), iters)
     bound, by = k1_bound(pl.segments, k, T)
     return ms, bound, by, pl.segments
 
@@ -504,11 +569,30 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
         recs.append(k1_case('main first%d %s' % (nb, axis), *side[axis],
                             lay[axis], axis, batches=range(nb), iters=5,
                             plain_iters=2, **kw))
+    # the other paths' builds: SVD++ and FN run K1 on f32 fixed rows
+    for path in ('svdpp', 'fn'):
+        opt = dict(K1_PATHS[path], device=device)
+        nb = min(16, lay['user'][0].shape[0])
+        recs.append(k1_case('%s path first%d user (f32 fixed, T=%d)'
+                            % (path, nb, opt['T']), *side['user'],
+                            lay['user'], 'user', batches=range(nb),
+                            iters=5, plain_iters=2, **opt))
     runs = {a: _longest_run_batch(lay[a]) for a in lay}
     axis = max(runs, key=lambda a: runs[a][1])
     b, n = runs[axis]
     recs.append(k1_case('main longest segment (%s %d, %d)' % (axis, b, n),
                         *side[axis], lay[axis], axis, batches=[b], **kw))
+    # the most-rated item's whole chain (a cluster row) against the plain
+    # version: every batch it has ratings in
+    hot = int(np.bincount(i).argmax())
+    hot_b = np.flatnonzero(((lay['item'][1] == hot)
+                            & (lay['item'][3] > 0)).any(1))
+    recs.append(k1_case('main hot item %d chain (%d batches, cluster)'
+                        % (hot, hot_b.size), *side['item'], lay['item'],
+                        'item', batches=hot_b, **kw))
+    recs.append(k1_case('logistic hot item %d chain (cluster)' % hot,
+                        *side['item'], lay['item'], 'item', batches=hot_b,
+                        **LOGISTIC, **kw))
     pairs = [(a, _boundary_pair(lay[a])) for a in ('user', 'item')]
     axis, b = next((a, b) for a, b in pairs + [(None, None)]
                    if a is None or b is not None)
@@ -525,8 +609,7 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
              for a in ('user', 'item')}
     sP, sQ = _aug_factors(3000, 700, K, W, seed=2)
     wP, wQ = _aug_factors(3000, 700, 128, W, seed=3)
-    edge = [('edge logistic', dict(link='logistic', clamp_pred=False,
-                                   mu=0.0)),
+    edge = [('edge logistic', LOGISTIC),
             ('edge bias_none', dict(bias_none=True)),
             ('edge row_mean=False', dict(row_mean=False, lr=0.01)),
             ('edge clamp_pred=False', dict(clamp_pred=False)),
@@ -551,7 +634,6 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
         log('  time whole %s half-pass: kernel %.3f ms, bound %.3f ms (%s);'
             ' longest row %d ratings in %d segments  [%s]'
             % (axis, ms, bound, by, seg.longest, seg.longest_segments, card))
-    hot = int(np.bincount(i).argmax())           # the most-rated item
     ms, bound, by, seg = k1_kernel_ms(*side['item'], lay['item'], 'item',
                                       only_row=hot, **kw)
     timing['chain'] = dict(ms=ms, bound_ms=bound, row=hot,
@@ -561,6 +643,14 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
         '%.3f ms, %.1f %% of the item half-pass, bound %.3f ms  [%s]'
         % (hot, seg.longest, seg.longest_segments, ms,
            100.0 * ms / timing['item']['ms'], bound, card))
+    # the logistic link's build (KMF's half-passes): the item half-pass and
+    # the hot item's chain, whose cluster rows it runs too
+    lg = {n: k1_kernel_ms(*side['item'], lay['item'], 'item', only_row=row,
+                          **LOGISTIC, **kw)[0]
+          for n, row in (('item', None), ('chain', hot))}
+    timing['logistic'] = lg
+    log('  time logistic link: whole item half-pass %.3f ms, longest chain '
+        '%.3f ms  [%s]' % (lg['item'], lg['chain'], card))
     for r in recs:
         if 'ms' in r:
             log('  time %-26s kernel %.3f ms, plain %.3f ms, bound %.3f ms '
@@ -1012,7 +1102,8 @@ def k4_case(name, g, kl, m, W, iters=0, plain_iters=0):
     (counts exactly, sums within K4_ATOL/K4_RTOL, a second launch
     bit-identical); with ``iters`` the kernel, the plain version, one
     ``index_add_`` of the pre-rounded rows (the library yardstick) and
-    the bound.'''
+    the bound, the kernel and ``index_add_`` both by CUDA events around a
+    call (host included) and by their device time (``device_ms``).'''
     import torch
     from mfrec_tpu_torch.ops.window_agg_kernel import (window_aggregate,
                                                        window_aggregate_ref)
@@ -1040,10 +1131,17 @@ def k4_case(name, g, kl, m, W, iters=0, plain_iters=0):
         out = torch.zeros((W, k), dtype=torch.float32, device=g.device)
         rec['library_ms'] = timed_ms(lambda: out.index_add_(0, idx, g16),
                                      iters)
+        if g.is_cuda:
+            rec['device_ms'] = device_ms(lambda: window_aggregate(
+                g, kl, m, W, check_ids=False))
+            rec['library_device_ms'] = device_ms(
+                lambda: out.index_add_(0, idx, g16))
         rec['bound_ms'], rec['bound_by'] = k4_call_bound(n_in, B, k, W)
     times = ' kernel %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound %.4f ' \
-        'ms' % (rec['ms'], rec['plain_ms'], rec['library_ms'],
-                rec['bound_ms']) if iters else ''
+        'ms; device time kernel %.4f ms, index_add_ %.4f ms' % (
+            rec['ms'], rec['plain_ms'], rec['library_ms'], rec['bound_ms'],
+            rec.get('device_ms', -1.0), rec.get('library_device_ms', -1.0)) \
+        if iters else ''
     log('  %-44s ok=%s max_abs_err=%.3g (float64: kernel %.3g, plain %.3g;'
         ' %d of %d rows in)%s' % (name, ok, err, k64, p64, n_in, B, times))
     return rec
@@ -1092,6 +1190,90 @@ def k4_scan_case(name, seg, k, rows, seed, iters=0, plain_iters=0,
                    ' kernel %.3f ms, plain %.3f ms, index_add_ %.3f ms, bound '
                    '%.3f ms' % (rec['ms'], rec['plain_ms'], rec['library_ms'],
                                 rec['bound_ms']) if iters else ''))
+    return rec
+
+
+def step_bound(seg, k, nt, weighted):
+    '''The item step's least time: the bytes its inputs need (the
+    table's ent_fix and ent_m, the per-entry weights when ``weighted``,
+    the G rows it gathers read once, the segment offsets and rows, the
+    ``nt`` targets' rows read and written once) over the memory rate,
+    against its 4 operations per entry, column and target (weight, decay,
+    mask, add) over the FP32 peak.'''
+    import torch
+    n = int(seg.ent_r.numel())
+    nb = int(seg.blk_row.numel())
+    ns = int(seg.seg_cnt.numel())
+    nfix = int(torch.unique(seg.ent_fix).numel())
+    nbytes = ((12.0 if weighted else 8.0) * n + 4.0 * k * nfix
+              + 4.0 * (ns + 1) + 12.0 * nb + 8.0 * k * nb * nt)
+    return roofline_ms(4.0 * n * k * nt, nbytes)
+
+
+def step_case(name, kind, seg, q_layout, k, seed, iters=0, plain_iters=0):
+    '''The fused item step (``step_aggregate``) over an item layout's
+    segment table against its plain version, from random targets and G
+    (SVD++'s Y, or FN's residual-weighted X and Y): within K4_ATOL plus
+    STEP_UPD_TOL of the largest change, a second launch bit-identical.
+    With ``iters`` its times beside the plain version's, the parent's
+    per-batch loop over ``q_layout`` (one K4 call per item batch) and the
+    bound; no one PyTorch call computes the chain.'''
+    import torch
+    from mfrec_tpu_torch.ops import fn as fn_ops
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops.window_agg_kernel import (step_aggregate,
+                                                       step_aggregate_ref)
+    dev = seg.ent_r.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    U1 = int(seg.max_fix) + 1 + q_layout.W
+    I1 = int(seg.max_row) + 1 + q_layout.W
+    G = 0.01 * torch.randn((U1, k), generator=gen, device=dev)
+    T0 = [0.05 * torch.randn((I1, k), generator=gen, device=dev)
+          for _ in range(2 if kind == 'fn' else 1)]
+    mu = torch.tensor(3.5)
+    bu = 0.3 * torch.randn(U1, generator=gen, device=dev)
+    bi = 0.3 * torch.randn(I1, generator=gen, device=dev)
+    step, decay = 0.15, (0.02, 0.02)[:len(T0)]
+    coef = (seg.ent_r - (mu + bu[seg.ent_fix.long()] + bi[seg.ent_row.long()]),
+            None) if kind == 'fn' else (None,)
+    kw = dict(coef=coef, decay=decay, step=step, row_mean=True)
+    got = step_aggregate([t.clone() for t in T0], G, seg, **kw)
+    again = step_aggregate([t.clone() for t in T0], G, seg, **kw)
+    if G.is_cuda:
+        torch.cuda.synchronize()
+    want = step_aggregate_ref([t.clone() for t in T0], G, seg, **kw)
+    moved = max(float((w - t).abs().max()) for w, t in zip(want, T0))
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    ok = moved > 0 and err <= K4_ATOL + STEP_UPD_TOL * moved and all(
+        bool(torch.equal(a, b)) and bool(torch.isfinite(a).all())
+        for a, b in zip(got, again))
+    rec = {'case': name, 'k': k, 'targets': len(T0),
+           'entries': int(seg.ent_r.numel()), 'rows': int(seg.blk_row.numel()),
+           'longest_row': seg.longest, 'ok': ok, 'max_abs_err': err,
+           'moved': moved}
+    del got, again, want
+    if iters:
+        tk = [t.clone() for t in T0]
+        rec['ms'] = timed_ms(lambda: step_aggregate(tk, G, seg, **kw), iters)
+        rec['plain_ms'] = timed_ms(
+            lambda: step_aggregate_ref(tk, G, seg, **kw), plain_iters or iters)
+        if kind == 'fn':
+            loop = lambda: fn_ops.xy_step_batches(  # noqa: E731
+                tk[0], tk[1], G, q_layout, mu, bu, bi, *decay, step, True)
+        else:
+            loop = lambda: sgd_mf.y_step_batches(  # noqa: E731
+                tk[0], G, q_layout, decay[0], step, True)
+        rec['loop_ms'] = timed_ms(loop, plain_iters or iters)
+        rec['library_ms'] = None
+        rec['bound_ms'], rec['bound_by'] = step_bound(seg, k, len(T0),
+                                                      kind == 'fn')
+        del tk
+    log('  %-44s ok=%s max_abs_err=%.3g (largest change %.3g; %d entries in '
+        '%d rows, longest %d)%s'
+        % (name, ok, err, moved, rec['entries'], rec['rows'], seg.longest,
+           ' kernel %.4f ms, plain %.3f ms, per-batch loop %.3f ms, bound '
+           '%.4f ms' % (rec['ms'], rec['plain_ms'], rec['loop_ms'],
+                        rec['bound_ms']) if iters else ''))
     return rec
 
 
@@ -1169,16 +1351,39 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
     scans.append(k4_scan_case('phase mean=True: reduced user layout', seg,
                               66, REDUCED[0] + 512, seed=5, mean=True))
+    # the SVD++ / FN item step over the W=512 item layout, one launch
+    from mfrec_tpu_torch.ops import sgd_mf
+    L = lay['item', 512]
+    seg = hk.build_segments(L[0], L[2], L[3], L[4], L[5], 512, dev)
+    ql = sgd_mf.PassLayout(L, 'item', dev)
+    steps = [step_case('item step: SVD++ Y (W=512, k=64)', 'svdpp', seg, ql,
+                       64, seed=6, iters=10, plain_iters=2),
+             step_case('item step: FN X and Y (W=512, k=64 x 2)', 'fn', seg,
+                       ql, 64, seed=7, iters=10, plain_iters=2)]
+    del seg, ql
+    L = stream_layout(*REDUCED, 'item', 64)
+    seg = hk.build_segments(L[0], L[2], L[3], L[4], L[5], 64, dev)
+    steps.append(step_case('item step: reduced FN, k=128 x 2', 'fn', seg,
+                           sgd_mf.PassLayout(L, 'item', dev), 128, seed=8))
     for r in recs + scans:
         if 'ms' in r:
             log('  time %-44s kernel %.4f ms, plain %.4f ms, index_add_ '
-                '%.4f ms, bound %.4f ms (%s)  [%s]'
+                '%.4f ms, bound %.4f ms (%s)%s  [%s]'
                 % (r['case'], r['ms'], r['plain_ms'], r['library_ms'],
+                   r['bound_ms'], r['bound_by'],
+                   '; device time kernel %.4f ms, index_add_ %.4f ms'
+                   % (r['device_ms'], r['library_device_ms'])
+                   if 'device_ms' in r else '', card))
+    for r in steps:
+        if 'ms' in r:
+            log('  time %-44s kernel %.4f ms, plain %.3f ms, per-batch loop '
+                '%.3f ms, bound %.4f ms (%s)  [%s]'
+                % (r['case'], r['ms'], r['plain_ms'], r['loop_ms'],
                    r['bound_ms'], r['bound_by'], card))
-    bad = [r['case'] for r in recs + scans if not r['ok']]
+    bad = [r['case'] for r in recs + scans + steps if not r['ok']]
     if bad:
         raise SystemExit('phase 2 (K4) failed: %s' % bad)
-    return {'recs': recs, 'scans': scans}
+    return {'recs': recs, 'scans': scans, 'steps': steps}
 
 
 def make_implicit_data(U, I, N, seed=0, clusters=32, heldout_per_user=3):
@@ -1569,18 +1774,23 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
 
 
 def k4_launches():
+    '''K4's launches by all three entry points (the per-call sum, the
+    phase aggregation and the item step).'''
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       step_aggregate,
                                                        window_aggregate)
-    return scan_aggregate.launches + window_aggregate.launches
+    return scan_aggregate.launches + window_aggregate.launches + \
+        step_aggregate.launches
 
 
 def zero_launch_counts():
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               window_aggregate):
+               window_aggregate, step_aggregate):
         fn.launches = 0
 
 
@@ -1615,13 +1825,19 @@ def epochs_timed(train, history, card, device):
                 hist=hist, rmse=h5, warmup_s=t_warm, warmup_rmse=h1[0])
 
 
+K4_KERNELS = ('window_index_kernel', 'window_sum_kernel', 'scan_agg_kernel',
+              'step_agg_kernel')
+
+
 def tier_split(epoch, state, args, device):
     '''One epoch of a tier on the card, split by phase: the CUDA-event
     time from one phase's end to the next's (the epoch's ``on_phase``
     hook marks them) beside the host time to enqueue it, then one more
     epoch under torch.profiler for the kernels' busy time by kernel (K1
-    ``half_pass_rows``, K4 ``window_agg_kernel``/``scan_agg_kernel``,
-    the rest) and the device idle share (1 - busy / host time).'''
+    ``half_pass_rows``/``half_pass_cluster_rows``, K4's
+    ``window_index_kernel``/``window_sum_kernel``/``scan_agg_kernel``/
+    ``step_agg_kernel``, the rest) and the device idle share (1 - busy /
+    host time).'''
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device != 'cuda':
@@ -1655,9 +1871,9 @@ def tier_split(epoch, state, args, device):
             continue
         ms = getattr(e, 'self_device_time_total',
                      getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
-        key = 'k1' if 'half_pass_rows' in e.key else 'k4' if (
-            'window_agg_kernel' in e.key or 'scan_agg_kernel' in e.key) \
-            else 'other'
+        key = 'k1' if ('half_pass_rows' in e.key
+                       or 'half_pass_cluster_rows' in e.key) else 'k4' if \
+            any(n in e.key for n in K4_KERNELS) else 'other'
         busy[key] += ms
     total = sum(busy.values())
     return {'phases': phases,
@@ -1790,6 +2006,7 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     from mfrec_tpu_torch.models.gd import GDRecommender
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       step_aggregate,
                                                        window_aggregate)
     card = card_line()
     t0 = time.perf_counter()
@@ -1811,6 +2028,7 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     res.update(k1_launches=half_pass.launches,
                k4_scan_launches=scan_aggregate.launches,
                k4_call_launches=window_aggregate.launches,
+               k4_step_launches=step_aggregate.launches,
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
     check_tier_run('phase 6', res, device, q_batches, card)
@@ -1827,26 +2045,29 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 def check_tier_run(name, res, device, q_batches, card):
     '''The gates of phases 6 and 7: every epoch's train RMSE finite, the
     last below the bias-only floor, and (on the card) K1 and K4 launched
-    as the 21 timed epochs need: 2 K1 and 2 phase-K4 launches per epoch,
-    one K4 call per item batch.'''
+    as the 21 timed epochs need: 2 K1 launches per epoch, and 3 of K4 --
+    2 whole-phase aggregations and one item step, no call per item
+    batch.'''
     hist = res['hist']
     log('  warm-up 1 epoch %.2f s (rmse %.4f); rmse per epoch (last 5-epoch '
         'run): %s' % (res['warmup_s'], res['warmup_rmse'],
                       ' '.join('%.4f' % x for x in res['rmse'])))
     log('  epoch %.4f s (median of 3), final rmse %.4f vs floor %.4f; K1 '
-        'launches %d, K4 launches %d (%d whole-phase + %d per-batch; %d item '
-        'batches per epoch) over 21 epochs  [%s]'
+        'launches %d, K4 launches %d (%d whole-phase + %d item-step + %d '
+        'per-batch; %d item batches per epoch): %.2f per epoch over 21 '
+        'epochs  [%s]'
         % (res['epoch_s'], res['rmse'][-1], res['floor'], res['k1_launches'],
            res['k4_launches'], res['k4_scan_launches'],
-           res['k4_call_launches'], q_batches, card))
+           res['k4_step_launches'], res['k4_call_launches'], q_batches,
+           res['k4_launches'] / 21.0, card))
     if not all(np.isfinite(hist)):
         raise SystemExit('%s: non-finite training RMSE: %s' % (name, hist))
     if not res['rmse'][-1] < res['floor']:
         raise SystemExit('%s: final RMSE %.4f does not beat the bias-only '
                          'floor %.4f' % (name, res['rmse'][-1], res['floor']))
-    want = (42, 42, 21 * q_batches)
+    want = (42, 42, 21, 0)
     got = (res['k1_launches'], res['k4_scan_launches'],
-           res['k4_call_launches'])
+           res['k4_step_launches'], res['k4_call_launches'])
     if device == 'cuda' and got != want:
         raise SystemExit('%s: K1/K4 launches %s, expected %s'
                          % (name, got, want))
@@ -1861,6 +2082,7 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+                                                       step_aggregate,
                                                        window_aggregate)
     card = card_line()
     t0 = time.perf_counter()
@@ -1881,6 +2103,7 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     res.update(k1_launches=half_pass.launches,
                k4_scan_launches=scan_aggregate.launches,
                k4_call_launches=window_aggregate.launches,
+               k4_step_launches=step_aggregate.launches,
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
     check_tier_run('phase 7', res, device, q_batches, card)
@@ -2304,41 +2527,210 @@ def k2_entry(k2_recs, als):
 
 
 def k4_entry(k4, svdpp, fn):
-    '''K4's entry of the kernels line: times at the JAX call's shape (a
-    real user batch), at the SVD++ item step's and on a whole W=512 user
-    layout; launches over phases 6 and 7's timed epochs.'''
+    '''K4's entries of the kernels line: the per-call sum and the phase
+    aggregation (times at the JAX call's shape, a real user batch, on
+    the hottest item batch, at the old item-step call's and on a whole
+    W=512 user layout), and the item step (a whole W=512 item layout);
+    launches over phases 6 and 7's timed epochs.'''
     if not k4:
         return []
-    call, ystep, xystep = k4['recs'][0], k4['recs'][2], k4['recs'][3]
+    call, hotb = k4['recs'][0], k4['recs'][1]
+    ystep, xystep = k4['recs'][2], k4['recs'][3]
     scan = k4['scans'][0]
+    y, xy = k4['steps'][0], k4['steps'][1]
     runs = [r for r in (svdpp, fn) if r]
+
+    def split(r, name):
+        return r.get('split', {}).get('phases', {}).get(name, {})
+
     return [{
         'name': 'window_agg (K4, sorted-window aggregation)',
         'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/window_agg.cu',
         'replaces': 'mfrec_tpu/ops/pallas_window_agg.py:24',
-        'launches': sum(r['k4_launches'] for r in runs) if runs else None,
+        'launches': sum(r['k4_scan_launches'] + r['k4_call_launches']
+                        for r in runs) if runs else None,
         'max_abs_err': max(r['max_abs_err']
                            for r in k4['recs'] + k4['scans']),
         'ms': call['ms'], 'plain_ms': call['plain_ms'],
         'bound_ms': call['bound_ms'], 'bound_by': call['bound_by'],
         'library_ms': call['library_ms'],
-        'shape': 'one call on ML-10M user batch 0: B=16384 W=128 k=66',
+        'shape': 'one call on ML-10M user batch 0: B=16384 W=128 k=66; ms, '
+                 'plain_ms and library_ms CUDA events around one call (host '
+                 'included), *device_ms the kernels\' own time '
+                 '(torch.profiler)',
+        'device_ms': call['device_ms'],
+        'library_device_ms': call['library_device_ms'],
+        'ms_hot_batch': hotb['ms'],
+        'library_ms_hot_batch': hotb['library_ms'],
+        'device_ms_hot_batch': hotb['device_ms'],
+        'library_device_ms_hot_batch': hotb['library_device_ms'],
+        'bound_ms_hot_batch': hotb['bound_ms'],
         'ms_y_step_call': ystep['ms'], 'bound_ms_y_step_call':
             ystep['bound_ms'], 'ms_xy_step_call': xystep['ms'],
         'ms_phase': scan['ms'], 'plain_ms_phase': scan['plain_ms'],
         'bound_ms_phase': scan['bound_ms'],
         'library_ms_phase': scan['library_ms'],
-        'launches_svdpp': svdpp.get('k4_launches'),
-        'launches_fn': fn.get('k4_launches'),
+        'launches_per_epoch_all_entries_svdpp':
+            svdpp['k4_launches'] / 21.0 if svdpp else None,
+        'launches_per_epoch_all_entries_fn':
+            fn['k4_launches'] / 21.0 if fn else None,
         'epoch_s_svdpp': svdpp.get('epoch_s'),
-        'epoch_s_fn': fn.get('epoch_s')}]
+        'epoch_s_fn': fn.get('epoch_s')}, {
+        'name': 'step_aggregate (K4 item step, SVD++ Y / FN X and Y)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/window_agg.cu',
+        'replaces': 'mfrec_tpu/ops/sgd_mf.py:993-1000 and '
+                    'mfrec_tpu/ops/fn.py:232-249 over '
+                    'mfrec_tpu/ops/pallas_window_agg.py:24',
+        'launches': sum(r['k4_step_launches'] for r in runs)
+        if runs else None,
+        'max_abs_err': max(r['max_abs_err'] for r in k4['steps']),
+        'ms': y['ms'], 'plain_ms': y['plain_ms'], 'bound_ms': y['bound_ms'],
+        'bound_by': y['bound_by'], 'library_ms': None,
+        'shape': 'SVD++ Y over the ML-10M W=512 item layout: 8346084 '
+                 'entries, k=64',
+        'per_batch_loop_ms': y['loop_ms'],
+        'ms_fn': xy['ms'], 'plain_ms_fn': xy['plain_ms'],
+        'per_batch_loop_ms_fn': xy['loop_ms'], 'bound_ms_fn': xy['bound_ms'],
+        'step_device_ms_svdpp': split(svdpp, 'Y step').get('device_ms'),
+        'step_enqueue_ms_svdpp': split(svdpp, 'Y step').get('host_ms'),
+        'step_device_ms_fn': split(fn, 'X/Y step').get('device_ms'),
+        'step_enqueue_ms_fn': split(fn, 'X/Y step').get('host_ms')}]
+
+
+def ab_layouts(path):
+    '''The W=128 ML-10M user and item layouts and the most-rated item,
+    built once by the process that starts the A/B and loaded by each
+    checkout's process from ``path`` (an .npz).'''
+    if os.path.exists(path):
+        z = np.load(path)
+        lay = {a: tuple(z['%s%d' % (a, j)] for j in range(6)) + (128,)
+               for a in ('user', 'item')}
+        return lay, int(z['hot'])
+    U, I, nnz = ML10M['U'], ML10M['I'], ML10M['nnz']
+    lay = {a: stream_layout(U, I, nnz, a, 128) for a in ('user', 'item')}
+    hot = int(np.bincount(unique_stream(U, I, nnz)[1]).argmax())
+    np.savez(path, hot=hot, **{'%s%d' % (a, j): lay[a][j]
+                               for a in lay for j in range(6)})
+    return lay, hot
+
+
+def ab_k1(lay, hot):
+    '''K1 in this process's checkout: ``kernel_probe``'s hiT (us per
+    batch and sweep), the ML-10M-shape user and item half-passes, the
+    most-rated item's chain and the first 16 user batches, and the item
+    half-pass and chain through the logistic link's build (ms, CUDA
+    events).'''
+    from mfrec_tpu_torch.tools import kernel_probe as kp
+    Paug, Qaug = _aug_factors(ML10M['U'], ML10M['I'], 64, 128, seed=1)
+    hit = kp.hit_mode(kp.probe_data('cuda'), reps=3, iters=3,
+                      log=lambda x: None)
+    out = {'hit_us': 1e6 * hit['marg_8_32']}
+    for name, F, G, axis, row, opts in (
+            ('user_ms', Paug, Qaug, 'user', None, {}),
+            ('item_ms', Qaug, Paug, 'item', None, {}),
+            ('chain_ms', Qaug, Paug, 'item', hot, {}),
+            ('item_ms_logistic', Qaug, Paug, 'item', None, LOGISTIC),
+            ('chain_ms_logistic', Qaug, Paug, 'item', hot, LOGISTIC)):
+        out[name] = k1_kernel_ms(F, G, lay[axis], axis, iters=3,
+                                 only_row=row, **opts)[0]
+    out['first16_user_ms'] = k1_kernel_ms(
+        Paug, Qaug, tuple(a[:16] for a in lay['user'][:-1]) + (128,), 'user',
+        iters=5)[0]
+    return out
+
+
+def ab_k1_rows(lay, hot):
+    '''The item half-pass and the hot chain (ms) with K1's cluster rows
+    at ``CLUSTER_ROW`` 4,096, 16,384 and none.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    Paug, Qaug = _aug_factors(ML10M['U'], ML10M['I'], 64, 128, seed=1)
+    out = {}
+    for row in (4096, 16384, 10 ** 9):
+        hk.CLUSTER_ROW = row
+        item = k1_kernel_ms(Qaug, Paug, lay['item'], 'item', iters=3)
+        chain = k1_kernel_ms(Qaug, Paug, lay['item'], 'item', iters=3,
+                             only_row=hot)[0]
+        out['cluster_row_%d' % row] = dict(item_ms=item[0], chain_ms=chain,
+                                           cluster_rows=item[3].n_cluster)
+    return out
+
+
+def ab_k4(lay):
+    '''One per-call ``window_aggregate`` at the JAX shape (user batch 0,
+    W=128, k=66) and on the hottest item batch, beside ``index_add_`` of
+    the same pre-rounded rows: CUDA events around one call (host
+    included) and device time (``device_ms``).'''
+    import torch
+    from mfrec_tpu_torch.ops.window_agg_kernel import window_aggregate
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    hb, _ = _longest_run_batch(lay['item'])
+    out = {}
+    for name, L, b in (('jax_shape', lay['user'], 0),
+                       ('hot_batch', lay['item'], hb)):
+        g = torch.from_numpy(rng.normal(0, 1, (L[4].shape[1], 66)).astype(
+            np.float32)).to(dev)
+        kl = torch.from_numpy(np.ascontiguousarray(L[4][b])).to(dev)
+        m = torch.from_numpy(np.ascontiguousarray(L[3][b])).to(dev)
+        keep = m > 0
+        idx, g16 = kl[keep].long(), g[keep].to(torch.bfloat16).float()
+        acc = torch.zeros((128, 66), device=dev)
+        for what, fn in (
+                ('kernel', lambda: window_aggregate(g, kl, m, 128,
+                                                    check_ids=False)),
+                ('index_add_', lambda: acc.index_add_(0, idx, g16))):
+            out['%s_%s' % (name, what)] = dict(event_ms=timed_ms(fn, 50),
+                                               device_ms=device_ms(fn))
+    return out
+
+
+def ab_main(mode, checkouts, child):
+    '''``--ab``: each checkout measured in a process of its own (its own
+    ``mfrec_tpu_torch`` and kernel builds, this script's measurement), in
+    the order given; one ``AB <mode> {...}`` JSON line per checkout.'''
+    cache = os.path.join(REPO, 'mfrec_tpu_torch', '_build', 'ab_layouts.npz')
+    if child:
+        checkout = os.path.abspath(checkouts[0])
+        os.chdir(checkout)
+        sys.path.insert(0, checkout)
+        from mfrec_tpu_torch.ops import _cuda_build
+        from mfrec_tpu_torch.ops import half_pass_kernel as hk
+        _cuda_build.build(tuple(getattr(hk, 'LIBRARIES',
+                                        {0: 'half_pass'}).values())
+                          + ('window_agg',))
+        lay, hot = ab_layouts(cache)
+        out = {'k1': lambda: ab_k1(lay, hot),
+               'k1-rows': lambda: ab_k1_rows(lay, hot),
+               'k4': lambda: ab_k4(lay)}[mode]()
+        out.update(checkout=checkout, card=card_line())
+        print('AB %s %s' % (mode, json.dumps(out)), flush=True)
+        return 0
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    ab_layouts(cache)
+    rc = 0
+    try:
+        for d in checkouts:
+            rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  '--ab', mode, '--ab-child', d]).returncode
+    finally:
+        os.remove(cache)
+    return rc
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
     ap.add_argument('--phases', default='12345678',
                     help='which phases to run (default: all)')
+    ap.add_argument('--ab', choices=('k1', 'k4', 'k1-rows'),
+                    help='instead of the phases, time K1 or K4 in each '
+                         'checkout given, in the order given')
+    ap.add_argument('--ab-child', action='store_true', help=argparse.SUPPRESS)
+    ap.add_argument('checkouts', nargs='*', help='checkouts for --ab')
     args = ap.parse_args(argv)
+    if args.checkouts and not args.ab:
+        ap.error('checkouts are for --ab')
     if not os.path.isdir(os.path.join(REPO, 'mfrec_tpu_torch')):
         log('chip_smoke: mfrec_tpu_torch is not beside this script')
         return 2
@@ -2348,6 +2740,8 @@ def main(argv=None):
         log('chip_smoke: no CUDA device (torch.cuda.is_available() is '
             'False)')
         return 2
+    if args.ab:
+        return ab_main(args.ab, args.checkouts, args.ab_child)
     if '1' in args.phases:
         phase1()
     k3_recs, (k1_recs, k1_time), k2_recs, k4 = phase2() \
@@ -2374,7 +2768,7 @@ def main(argv=None):
             'shape': 'B=1024 I=360000 k=64 n=10'}, {
             'name': 'half_pass (K1, fused sorted-window SGD batch step)',
             'route': 'cuda',
-            'source': 'mfrec_tpu_torch/csrc/half_pass.cu',
+            'source': 'mfrec_tpu_torch/csrc/half_pass.cuh',
             'replaces': 'mfrec_tpu/ops/pallas_half_pass.py:274',
             'launches': train.get('k1_launches'),
             'max_abs_err': max(r['max_abs_err'] for r in k1_recs),
@@ -2388,6 +2782,8 @@ def main(argv=None):
             'bound_ms_half_pass_user': k1_time['user']['bound_ms'],
             'bound_ms_half_pass_item': k1_time['item']['bound_ms'],
             'ms_longest_chain': k1_time['chain']['ms'],
+            'ms_half_pass_item_logistic': k1_time['logistic']['item'],
+            'ms_longest_chain_logistic': k1_time['logistic']['chain'],
             'epoch_s': train.get('epoch_s'),
             'launches_phase8': p8.get('launches', {}).get('k1')}]
             + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)

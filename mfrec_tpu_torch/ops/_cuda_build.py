@@ -1,18 +1,21 @@
 '''
 Build-at-first-use for the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  The first call to
-``load(name)`` compiles it with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library under ``mfrec_tpu_torch/_build/``, named by a hash of the
-source and the flags, and loads it with ``ctypes``; later calls (and
-later processes, while the source is unchanged) reuse it.  Nothing is
-downloaded.  A failed build raises with the compiler's output.
+Each ``csrc/<name>.cu`` has a plain C interface (it may include a header
+of ``csrc/``, as K1's four builds include ``half_pass.cuh``).  The first
+call to ``load(name)`` compiles it with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library under ``mfrec_tpu_torch/_build/``, named by a hash
+of the source, its headers and the flags, and loads it with ``ctypes``;
+later calls (and later processes, while the source is unchanged) reuse
+it.  Nothing is downloaded.  A failed build raises with the compiler's
+output.
 '''
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,8 +46,11 @@ def nvcc_path():
 
 
 def library_path(name):
-    '''Where ``csrc/<name>.cu`` builds to: keyed on source + flags.'''
+    '''Where ``csrc/<name>.cu`` builds to: keyed on the source, the
+    ``csrc/`` headers it includes (``#include "x.cuh"``) and the flags.'''
     src = (CSRC / (name + '.cu')).read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     h = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / ('lib%s_%s.so' % (name, h))
 

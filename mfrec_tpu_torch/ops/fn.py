@@ -94,7 +94,9 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
          layout).
       5. x_j += lr_xy*(mean_u resid_uj G[u] - K_x x_j) and
          y_j += lr_xy*(mean_u G[u] - K_y y_j), batch after batch over the
-         item layout: one K4 call per batch over [gX | gY] side by side
+         item layout: ``step_aggregate`` over the layout's segment table
+         (one launch for X and Y at k <= 128, one each above), or without
+         a table one K4 call per batch over [gX | gY] side by side
          (columns sum independently, so this is the two calls' result).
 
     ``epoch_fn(Paug, Qaug, Xpad, Ypad, mu, p_layout, q_layout, nrm_rows,
@@ -157,30 +159,67 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
         # weight the residuals; the decay rides per sample)
         bu2 = Paug[:, k]
         bi2 = Qaug[:, k + 1]
-        together = 2 * k <= window_agg_kernel.MAX_K
-        for b, lo_ in enumerate(q_layout.lo_host.tolist()):
-            winX = Xpad[lo_:lo_ + W_item]
-            winY = Ypad[lo_:lo_ + W_item]
-            u, i = q_layout.u[b].long(), q_layout.i[b].long()
-            kl, m = q_layout.kl[b], q_layout.m[b]
-            kll = kl.long()
-            resid = q_layout.r[b] - (mu + bu2[u] + bi2[i])
-            Gu = G[u]
-            gX = resid[:, None] * Gu - K_x * winX[kll]
-            gY = Gu - K_y * winY[kll]
-            if together:
-                agg = sgd_mf._agg_window(torch.cat([gX, gY], 1), kl, m,
-                                         W_item, row_mean)
-                aggX, aggY = agg[:, :k], agg[:, k:]
+        if q_layout.W != W_item:
+            raise ValueError('layout window %d != epoch window %d'
+                             % (q_layout.W, W_item))
+        seg = q_layout.segments
+        if seg is not None:
+            # over the item layout's segment table (the entries' fixed ids
+            # are users, their rows items): X and Y in one launch, or one
+            # launch each when [X | Y] is wider than K4 takes (gX reads
+            # only winX and gY only winY, so the two give the same result)
+            resid = seg.ent_r - (mu + bu2[seg.ent_fix.long()]
+                                 + bi2[seg.ent_row.long()])
+            G = G.contiguous()
+            kw = dict(step=step_xy, row_mean=row_mean)
+            if 2 * k <= window_agg_kernel.MAX_K:
+                window_agg_kernel.step_aggregate(
+                    (Xpad, Ypad), G, seg, coef=(resid, None),
+                    decay=(K_x, K_y), **kw)
             else:
-                aggX = sgd_mf._agg_window(gX, kl, m, W_item, row_mean)
-                aggY = sgd_mf._agg_window(gY, kl, m, W_item, row_mean)
-            winX.copy_(winX + step_xy * aggX)
-            winY.copy_(winY + step_xy * aggY)
+                window_agg_kernel.step_aggregate(
+                    (Xpad,), G, seg, coef=(resid,), decay=(K_x,), **kw)
+                window_agg_kernel.step_aggregate((Ypad,), G, seg,
+                                                 decay=(K_y,), **kw)
+        else:
+            xy_step_batches(Xpad, Ypad, G, q_layout, mu, bu2, bi2, K_x, K_y,
+                            step_xy, row_mean)
         mark('X/Y step')
         return Paug, Qaug, Xpad, Ypad, rmse
 
     return epoch_fn
+
+
+def xy_step_batches(Xpad, Ypad, G, layout, mu, bu, bi, K_x, K_y, step,
+                    row_mean):
+    '''The FN item step batch after batch (the JAX scan ``xy_step``):
+    each item window's X and Y step from ``G[u]``, X's terms weighted by
+    the residuals ``r - (mu + bu[u] + bi[i])``; one K4 call per batch over
+    [gX | gY] side by side (columns sum independently, so this is the two
+    calls' result), two when 2k > 256.  Updates ``Xpad``/``Ypad`` in
+    place.'''
+    W, k = layout.W, Xpad.shape[1]
+    together = 2 * k <= window_agg_kernel.MAX_K
+    for b, lo in enumerate(layout.lo_host.tolist()):
+        winX = Xpad[lo:lo + W]
+        winY = Ypad[lo:lo + W]
+        u, i = layout.u[b].long(), layout.i[b].long()
+        kl, m = layout.kl[b], layout.m[b]
+        kll = kl.long()
+        resid = layout.r[b] - (mu + bu[u] + bi[i])
+        Gu = G[u]
+        gX = resid[:, None] * Gu - K_x * winX[kll]
+        gY = Gu - K_y * winY[kll]
+        if together:
+            agg = sgd_mf._agg_window(torch.cat([gX, gY], 1), kl, m, W,
+                                     row_mean)
+            aggX, aggY = agg[:, :k], agg[:, k:]
+        else:
+            aggX = sgd_mf._agg_window(gX, kl, m, W, row_mean)
+            aggY = sgd_mf._agg_window(gY, kl, m, W, row_mean)
+        winX.copy_(winX + step * aggX)
+        winY.copy_(winY + step * aggY)
+    return Xpad, Ypad
 
 
 def padded_user_lists(ratings, cap=None):

@@ -22,9 +22,12 @@ by where the tensors lie, never by what is installed.  The CUDA kernel
 works row by row from a segment table (``build_segments``, built once
 per layout on the host): window rows do not interact, so a half-pass is,
 per updated row, its per-batch segments in batch order, T sweeps each.
-Both paths update ``F_upd`` in place (the JAX package donates it).
-``half_pass.launches`` counts the calls that launched the kernel: one per
-half-pass (a call with long rows launches one grid per block width).
+The link and the fixed side's type are compile-time options: four
+builds (``csrc/half_pass{,_f32,_logistic,_logistic_f32}.cu`` over
+``csrc/half_pass.cuh``), one library each.  Both paths update ``F_upd``
+in place (the JAX package donates it).  ``half_pass.launches`` counts
+the calls that launched the kernel: one per half-pass (a call with hot
+rows launches one grid of 8-warp blocks and one of clusters).
 '''
 from __future__ import annotations
 
@@ -37,9 +40,20 @@ import torch
 MAX_K = 256
 LINKS = ('identity', 'logistic')
 # rows with at least this many ratings run in blocks of 32 warps instead
-# of 8 (at k <= WIDE_MAX_K), on a second stream beside the others
+# of 8 (at k <= WIDE_MAX_K), on a second stream beside the others (P1)
 WIDE_ROW = 4096
 WIDE_MAX_K = 160
+# K1 runs a row as a thread-block cluster (8 blocks, at k <= WIDE_MAX_K,
+# on the second stream) when it has at least CLUSTER_ROW ratings and at
+# least CLUSTER_SEG per segment on average: a cluster pays a barrier per
+# sweep, which only long segments amortize.  16,384 measured the
+# shortest item half-pass at the ML-10M shape on an H100 (PERF.md)
+CLUSTER_ROW = 16384
+CLUSTER_SEG = 1024
+# K1's builds by (link, fixed side in bf16)
+LIBRARIES = {('identity', True): 'half_pass', ('identity', False):
+             'half_pass_f32', ('logistic', True): 'half_pass_logistic',
+             ('logistic', False): 'half_pass_logistic_f32'}
 
 
 def _bf16(x):
@@ -130,8 +144,11 @@ class Segments(NamedTuple):
     count,
     ``longest_segments`` its number of segments; ``max_row`` and
     ``max_fix`` bound the rows it reads (host ints, so the wrapper checks
-    them without a device sync); the first ``n_wide`` blocks are the rows
-    of at least ``WIDE_ROW`` ratings.'''
+    them without a device sync); the first ``n_cluster`` blocks are K1's
+    cluster rows (``CLUSTER_ROW``, ``CLUSTER_SEG``), longest first, then
+    the other rows longest first, so that the first ``n_wide`` blocks are
+    the rows of at least ``WIDE_ROW`` ratings; ``blk_len`` (numpy, on the
+    host) is each block's entry count.'''
     blk_row: torch.Tensor
     blk_seg0: torch.Tensor
     blk_seg1: torch.Tensor
@@ -146,6 +163,8 @@ class Segments(NamedTuple):
     max_fix: int
     n_wide: int
     ent_row: torch.Tensor
+    blk_len: np.ndarray
+    n_cluster: int
 
 
 def build_segments(fix, r, m, kl, lo, W, device):
@@ -181,7 +200,11 @@ def build_segments(fix, r, m, kl, lo, W, device):
     row_first = np.nonzero(new_row)[0]
     row_end = np.append(row_first[1:], seg_row.size)
     row_len = seg_ptr[row_end] - seg_ptr[row_first]
-    lpt = np.argsort(-row_len, kind='stable')   # longest rows start first
+    row_nseg = row_end - row_first
+    cluster = (row_len >= CLUSTER_ROW) & (row_len >= CLUSTER_SEG * row_nseg)
+    # K1's cluster rows, then the others; longest first within each (ties
+    # in row order), so the long chains start first
+    lpt = np.lexsort((-row_len, ~cluster))
 
     ent_fix = fix[b_idx, j_idx]
 
@@ -196,12 +219,13 @@ def build_segments(fix, r, m, kl, lo, W, device):
         ent_fix=t(ent_fix, np.int32),
         ent_r=t(r[b_idx, j_idx], np.float32), ent_m=t(m_ent, np.float32),
         longest=int(row_len.max()) if row_len.size else 0,
-        longest_segments=int((row_end - row_first)[lpt[0]])
+        longest_segments=int(row_nseg[np.argmax(row_len)])
         if row_len.size else 0,
         max_row=int(rows.max()) if n else -1,
         max_fix=int(ent_fix.max()) if n else -1,
         n_wide=int((row_len >= WIDE_ROW).sum()),
-        ent_row=t(rows, np.int32))
+        ent_row=t(rows, np.int32), blk_len=row_len[lpt].astype(np.int64),
+        n_cluster=int(cluster.sum()))
 
 
 def _check_args(F_upd, F_fix, batches, W, lrv, regv, link, inner_steps):
@@ -244,10 +268,11 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
               bias_none=False, link='identity', segments=None):
     '''K1 over a list of batches ``(fix, r, m, kl [nb, B], lo [nb])``,
     updating ``F_upd`` [rows, k] f32 in place from ``F_fix`` [rows, k]
-    (bf16 on the model path).  CUDA tensors: one launch of
-    ``csrc/half_pass.cu`` over ``segments`` (``build_segments`` of the
-    same batches, required; the long rows' 32-warp blocks on a second
-    stream, joined back before it returns); CPU tensors:
+    (bf16 on the SGD path, f32 on the SVD++ and FN paths).  CUDA
+    tensors: one launch of K1's build for ``link`` and ``F_fix``'s type
+    over ``segments`` (``build_segments`` of the same batches, required;
+    the rows of at least ``CLUSTER_ROW`` ratings as thread-block clusters
+    on a second stream, joined back before it returns); CPU tensors:
     ``half_pass_ref``.  Returns the
     SSE of the batches' first sweeps (0-dim f32).  Raises on a device,
     dtype, shape or option the kernel does not take, and on a CUDA error
@@ -261,34 +286,41 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
     if dev.type != 'cuda':
         raise ValueError('half_pass runs on cuda or cpu tensors, not %s'
                          % dev)
-    lib = _library()
+    lib = _library(LIBRARIES[link, F_fix.dtype == torch.bfloat16])
     k = F_upd.shape[1]
+    inf = float('inf')
+    # the options as per-launch scalars: the prediction's base, and the
+    # clamp's bounds (+-inf when off)
+    base = 1.0 if bias_none else float(mu)
+    lo_c, hi_c = (float(lo_r), float(hi_r)) if clamp_pred else (-inf, inf)
 
     def tail(sse_rows):
         seg = segments
         return (seg.seg_ptr.data_ptr(), seg.seg_cnt.data_ptr(),
                 seg.ent_fix.data_ptr(), seg.ent_r.data_ptr(),
                 seg.ent_m.data_ptr(), lrv.data_ptr(), regv.data_ptr(),
-                float(mu), k, int(inner_steps), float(lo_r), float(hi_r),
-                int(bool(clamp_pred)), int(bool(row_mean)),
-                int(bool(bias_none)), int(link == 'logistic'),
-                int(k <= 128), sse_rows.data_ptr())
+                base, lo_c, hi_c, float(lo_r), float(hi_r), k,
+                int(inner_steps), int(bool(row_mean)), sse_rows.data_ptr())
 
-    sse, launched = run_segments(F_upd, F_fix, segments, lib.half_pass_launch,
-                                 lib.half_pass_error_string, 'half_pass',
-                                 tail)
+    sse, launched = run_segments(
+        F_upd, F_fix, segments, lib.half_pass_launch,
+        lib.half_pass_error_string, 'half_pass', tail,
+        n_wide=None if segments is None else segments.n_cluster)
     half_pass.launches += launched
     return sse
 
 
-def run_segments(F_upd, F_fix, seg, launch, error_string, name, tail):
-    '''Launch a kernel of K1's row design (``csrc/half_pass.cu``,
+def run_segments(F_upd, F_fix, seg, launch, error_string, name, tail,
+                 n_wide=None):
+    '''Launch a kernel of K1's row design (``csrc/half_pass.cuh``,
     ``csrc/half_pass_old.cu``) over segment table ``seg``:
     ``launch(*head, begin, end, wide, *tail(sse_rows), stream)`` once per
-    block width, the long rows' 32-warp blocks on a second stream joined
-    back before it returns.  Checks ``seg`` against the factors; raises
-    on a CUDA error at launch.  Returns (SSE as a 0-dim f32, whether it
-    launched: not when nothing is masked in).'''
+    block kind, the first ``n_wide`` blocks (default ``seg.n_wide``, the
+    rows of at least ``WIDE_ROW`` ratings; ``wide``: K1's clusters, P1's
+    32-warp blocks) on a second stream joined back before it returns.
+    Checks ``seg`` against the factors; raises on a CUDA error at launch.
+    Returns (SSE as a 0-dim f32, whether it launched: not when nothing is
+    masked in).'''
     dev = F_upd.device
     if seg is None:
         raise ValueError('a CUDA half-pass needs the segment table '
@@ -304,7 +336,8 @@ def run_segments(F_upd, F_fix, seg, launch, error_string, name, tail):
     n_blocks = int(seg.blk_row.shape[0])
     if n_blocks == 0:                    # nothing masked in: no launch
         return torch.zeros((), dtype=torch.float32, device=dev), False
-    n_wide = seg.n_wide if k <= WIDE_MAX_K else 0
+    n_wide = (seg.n_wide if n_wide is None else n_wide) \
+        if k <= WIDE_MAX_K else 0
     with torch.cuda.device(dev):
         main = torch.cuda.current_stream(dev)
         sse_rows = torch.empty(n_blocks, dtype=torch.float32, device=dev)
@@ -345,11 +378,11 @@ def _declare(lib):
     lib.half_pass_error_string.argtypes = [i]
     lib.half_pass_error_string.restype = ctypes.c_char_p
     lib.half_pass_launch.argtypes = [p, p, i, p, p, p, i, i, i, p, p, p, p,
-                                     p, p, p, f, i, i, f, f, i, i, i, i, i,
-                                     p, p]
+                                     p, p, p, f, f, f, f, f, i, i, i, p, p]
     lib.half_pass_launch.restype = i
 
 
-def _library():
+def _library(name='half_pass'):
+    '''One of K1's builds (``LIBRARIES``), built if needed.'''
     from mfrec_tpu_torch.ops import _cuda_build
-    return _cuda_build.load('half_pass', _declare)
+    return _cuda_build.load(name, _declare)

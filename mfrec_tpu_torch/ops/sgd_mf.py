@@ -30,10 +30,11 @@ stays f32.  ``use_agg_kernel`` is the JAX ``use_pallas_agg``: the plain
 sweep with K4 (``ops.window_agg_kernel.window_aggregate``) summing the
 gradients and counts in place of ``index_add_``.
 
-The aggregation phases go through K4 the same way: on a layout with K1's
-segment table (a CUDA model's) a whole phase is one ``scan_aggregate``
-launch; otherwise each batch is one ``window_aggregate`` call, as the
-JAX scan takes it.
+The aggregation phases and the SVD++ item step go through K4 the same
+way: on a layout with K1's segment table (a CUDA model's) a whole phase
+is one ``scan_aggregate`` launch and the item step one
+``step_aggregate`` launch; otherwise each batch is one
+``window_aggregate`` call, as the JAX scan takes it.
 
 Not ported (opt-in on the JAX side, off the default path): the grouped
 and gather-grouped half-passes, ``probe_ff``, ``locality_sort`` and the
@@ -401,6 +402,20 @@ def _scan_window_agg(target, layout, source_fn, W, mean):
     return target
 
 
+def y_step_batches(Ypad, G, layout, K_y, step, row_mean):
+    '''The SVD++ item step batch after batch (the JAX scan ``y_step``):
+    each item window ``win += step * _agg_window(G[u] - K_y*win[kl])``,
+    one K4 call per batch.  Updates ``Ypad`` in place.'''
+    W = layout.W
+    for b, lo in enumerate(layout.lo_host.tolist()):
+        win = Ypad[lo:lo + W]
+        kl = layout.kl[b]
+        vals = G[layout.u[b].long()] - K_y * win[kl.long()]
+        gsum = _agg_window(vals, kl, layout.m[b], W, row_mean)
+        win.copy_(win + step * gsum)
+    return Ypad
+
+
 def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
                                     clamp_pred=True, lo_r=1.0, hi_r=5.0,
                                     row_mean=True, inner_steps=1,
@@ -418,8 +433,10 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
       4. G[u] = nrm_u * sum_{i in R(u)} err_ui q_i (K4 over the user
          layout, errors from the updated Peff and Qaug).
       5. y_j += lr_y * (mean_{u: j in N(u)} G[u] - K_y y_j), batch after
-         batch over the item layout (one K4 call per batch: a window
-         reads what the batch before it wrote).
+         batch over the item layout (a window reads what the batch before
+         it wrote): one ``step_aggregate`` launch over the layout's
+         segment table, row by row, or without a table one K4 call per
+         batch.
 
     ``epoch_fn(Paug, Qaug, Ypad, mu, p_layout, q_layout, nrm_rows,
     lr_scale=1.0) -> (Paug, Qaug, Ypad, rmse)``.  Ypad: [nbr_items +
@@ -470,13 +487,17 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
         G = G * nrm_rows[:, None]
         mark('aggregate errors')
         # 5) G rows into item windows, step Y batch after batch (the
-        # decay rides per sample, so untouched rows get none)
-        for b, lo in enumerate(q_layout.lo_host.tolist()):
-            win = Ypad[lo:lo + W_item]
-            kl = q_layout.kl[b]
-            vals = G[q_layout.u[b].long()] - K_y * win[kl.long()]
-            gsum = _agg_window(vals, kl, q_layout.m[b], W_item, row_mean)
-            win.copy_(win + step_y * gsum)
+        # decay rides per sample, so untouched rows get none): one launch
+        # over the item layout's segment table where it has one
+        if q_layout.W != W_item:
+            raise ValueError('layout window %d != epoch window %d'
+                             % (q_layout.W, W_item))
+        if q_layout.segments is not None:
+            window_agg_kernel.step_aggregate(
+                (Ypad,), G.contiguous(), q_layout.segments, decay=(K_y,),
+                step=step_y, row_mean=row_mean)
+        else:
+            y_step_batches(Ypad, G, q_layout, K_y, step_y, row_mean)
         mark('Y step')
         return Paug, Qaug, Ypad, rmse
 

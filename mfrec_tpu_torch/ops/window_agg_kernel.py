@@ -13,22 +13,30 @@ Rows with ``mask == 0`` count nowhere, whatever their id.  Each element
 is rounded to bf16 (round to nearest even) and the sum is taken in f32,
 as the TPU kernel's bf16 one-hot product with f32 accumulation takes it.
 
-Two entry points, each with its plain version beside it:
+Three entry points, each with its plain version beside it:
 
 * ``window_aggregate(g, kl, mask, W)`` -> ``(gsum [W, k], cnt [W])``: one
-  call of the JAX signature; ``window_aggregate_ref`` is ``index_add_`` of
-  the bf16-rounded rows plus a count.
+  call of the JAX signature (an index-list launch, then a per-row sum);
+  ``window_aggregate_ref`` is ``index_add_`` of the bf16-rounded rows plus
+  a count.
 * ``scan_aggregate(target, vals, segments)``: a whole phase of a
   sorted-pass layout in one launch -- ``target[row] += `` each of the
   row's per-batch sums, in batch order, as ``_scan_window_agg``'s scan
   adds them -- over K1's segment table
   (``half_pass_kernel.build_segments``), with ``vals`` the rows in the
   table's entry order; ``scan_aggregate_ref`` is the plain version.
+* ``step_aggregate(targets, G, segments, coef, decay, step, row_mean)``:
+  the SVD++ / FN item step of a whole epoch in one launch -- per updated
+  row, over its segments in batch order, ``y += step *
+  agg(bf16((c*G[u] - decay*y)*m))`` -- the per-batch ``_agg_window`` loop
+  of ``make_alternating_implicit_epoch`` and ``make_fn_alternating_epoch``
+  window by window; ``step_aggregate_ref`` is the plain version.
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors -- by where the tensors lie, never by what is
-installed -- and raises for anything else.  ``window_aggregate.launches``
-and ``scan_aggregate.launches`` count the calls that launched a kernel.
+installed -- and raises for anything else.  ``window_aggregate.launches``,
+``scan_aggregate.launches`` and ``step_aggregate.launches`` count the
+calls that launched a kernel.
 '''
 from __future__ import annotations
 
@@ -37,6 +45,9 @@ import ctypes
 import torch
 
 MAX_K = 256
+# the item step runs rows of at least this many entries one 16-warp block
+# each (the hot items), every other row one warp
+STEP_BLOCK_ROW = 512
 
 
 def _bf16(x):
@@ -97,12 +108,22 @@ def window_aggregate(g, kl, mask, W, check_ids=True):
                          '%s' % dev)
     B, k = g.shape
     lib = _library()
+    # one allocation (a call is a few microseconds of device time, so the
+    # host's share matters): gsum [W, k] and cnt [W] as f32, then the
+    # rows' index lists -- offsets [W+1], the permutation [B] and, when
+    # they do not fit in shared memory, the per-(row, warp) counts
+    n_hist = _scratch_ints(lib, W)
+    n_out = W * k + W
     with torch.cuda.device(dev):
-        gsum = torch.empty((W, k), dtype=torch.float32, device=dev)
-        cnt = torch.empty(W, dtype=torch.float32, device=dev)
+        buf = torch.empty(n_out + W + 1 + max(B, 1) + n_hist,
+                          dtype=torch.int32, device=dev)
+        out = buf[:n_out].view(torch.float32)
+        gsum, cnt = out[:W * k].view(W, k), out[W * k:]
+        ptr = buf.data_ptr() + 4 * n_out
         rc = lib.window_agg_launch(
             g.data_ptr(), kl.data_ptr(), mask.data_ptr(), B, k, W,
-            gsum.data_ptr(), cnt.data_ptr(),
+            gsum.data_ptr(), cnt.data_ptr(), ptr, ptr + 4 * (W + 1),
+            ptr + 4 * (W + 1 + max(B, 1)) if n_hist else None,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc)
     window_aggregate.launches += 1
@@ -110,6 +131,15 @@ def window_aggregate(g, kl, mask, W, check_ids=True):
 
 
 window_aggregate.launches = 0
+_scratch = {}
+
+
+def _scratch_ints(lib, W):
+    '''The int32 scratch the index lists need beyond offsets and the
+    permutation at window W (the C side's rule), cached per W.'''
+    if W not in _scratch:
+        _scratch[W] = int(lib.window_agg_scratch_ints(W))
+    return _scratch[W]
 
 
 def scan_aggregate_ref(target, vals, segments, mean=False):
@@ -196,6 +226,135 @@ def scan_aggregate(target, vals, segments, mean=False):
 scan_aggregate.launches = 0
 
 
+def step_aggregate_ref(targets, G, segments, coef=(None, None),
+                       decay=(0.0, 0.0), step=1.0, row_mean=True):
+    '''The plain version of ``step_aggregate``, the per-batch loop row by
+    row: for j = 0, 1, ... the j-th segment of every row at once (rows do
+    not interact), each entry's ``bf16((c*G[u] - decay*y)*m)`` summed per
+    segment with ``index_add_`` in entry order (the order of the per-batch
+    window sums), divided by the segment's count with ``row_mean``, and
+    ``y + step*sum`` written back before segment j+1.'''
+    seg = segments
+    n_seg = int(seg.seg_cnt.shape[0])
+    if n_seg == 0:
+        return targets
+    dev = G.device
+    lens = (seg.seg_ptr[1:] - seg.seg_ptr[:-1]).long()
+    seg_of = torch.repeat_interleave(torch.arange(n_seg, device=dev), lens)
+    first, end = seg.blk_seg0.long(), seg.blk_seg1.long()
+    # each segment's place in its row's chain (blocks are rows longest
+    # first, a row's segments contiguous), and each entry's
+    per_row = end - first
+    pos = torch.arange(n_seg, device=dev) - torch.repeat_interleave(
+        torch.cumsum(per_row, 0) - per_row, per_row)
+    seg_pos = torch.empty(n_seg, dtype=torch.long, device=dev)
+    seg_pos[torch.repeat_interleave(first, per_row) + pos] = pos
+    ent_pos = seg_pos[seg_of]
+    cnt = torch.clamp(lens.float(), min=1.0)[:, None]
+    ent_row = seg.ent_row.long()
+    for j in range(int((end - first).max())):
+        sel = torch.nonzero(ent_pos == j).flatten()
+        rows, segs = ent_row[sel], seg_of[sel]
+        Gu = G[seg.ent_fix[sel].long()]
+        m = seg.ent_m[sel][:, None]
+        live = (first + j)[end - first > j]
+        for t, tgt in enumerate(targets):
+            cg = Gu if coef[t] is None else coef[t][sel][:, None] * Gu
+            vals = (cg - decay[t] * tgt[rows]) * m
+            sums = torch.zeros((n_seg, tgt.shape[1]), dtype=torch.float32,
+                               device=dev)
+            sums.index_add_(0, segs, vals.to(torch.bfloat16).float())
+            sums = sums[live]
+            if row_mean:
+                sums = sums / cnt[live]
+            y_rows = ent_row[seg.seg_ptr[live].long()]
+            tgt[y_rows] = tgt[y_rows] + step * sums
+    return targets
+
+
+def _check_step(targets, G, segments, coef, decay):
+    if len(targets) not in (1, 2) or len(coef) < len(targets) or \
+            len(decay) < len(targets):
+        raise ValueError('one or two targets, each with its coef and decay')
+    k = G.shape[1] if G.dim() == 2 else -1
+    if not 1 <= k * len(targets) <= MAX_K:
+        raise ValueError('G [rows, k] with k * targets in 1..%d' % MAX_K)
+    if segments.max_row >= min(t.shape[0] for t in targets) or \
+            segments.max_fix >= G.shape[0]:
+        raise ValueError('the segment table reads past a target or G')
+    n = int(segments.ent_r.shape[0])
+    named = [('G', G)] + [('targets[%d]' % x, t)
+                          for x, t in enumerate(targets)]
+    named += [('coef[%d]' % x, c) for x, c in enumerate(coef[:len(targets)])
+              if c is not None]
+    named += [('segments.%s' % f, getattr(segments, f))
+              for f in ('blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr',
+                        'ent_fix', 'ent_m', 'ent_row')]
+    for name, t in named:
+        if t.device != G.device:
+            raise ValueError('%s is on %s, G on %s' % (name, t.device,
+                                                      G.device))
+        if not t.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)
+    for name, t in named[:1 + len(targets)]:
+        if t.dim() != 2 or t.shape[1] != k or t.dtype != torch.float32:
+            raise ValueError('%s must be float32 [rows, %d]' % (name, k))
+    for name, t in named[1 + len(targets):-7]:
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise ValueError('%s must be float32 [%d]' % (name, n))
+
+
+def step_aggregate(targets, G, segments, coef=(None, None),
+                   decay=(0.0, 0.0), step=1.0, row_mean=True):
+    '''The SVD++ / FN item step over a whole sorted-pass layout: for every
+    row y of segment table ``segments`` (``half_pass_kernel.build_segments``
+    of the item layout; the entries' fixed ids are users), over its
+    segments in batch order, ``y += step * agg(bf16((c_e*G[u_e] -
+    decay*y)*m_e))`` -- agg the f32 sum over the segment's entries, divided
+    by max(count, 1) with ``row_mean``, y the row before that segment.
+
+    ``targets``: one or two [rows, k] f32 tensors updated in place (SVD++'s
+    Y; FN's X and Y), ``coef``/``decay`` one per target (``coef`` None for
+    c = 1, else a per-entry f32 weight in the table's entry order), ``G``
+    [rows_fix, k] f32, k * len(targets) <= 256.  Returns ``targets``.
+    CUDA tensors: one launch of ``csrc/window_agg.cu``; CPU tensors:
+    ``step_aggregate_ref``.'''
+    targets = tuple(targets)
+    coef, decay = tuple(coef), tuple(decay)
+    _check_step(targets, G, segments, coef, decay)
+    dev = G.device
+    if dev.type == 'cpu':
+        return step_aggregate_ref(targets, G, segments, coef, decay, step,
+                                  row_mean)
+    if dev.type != 'cuda':
+        raise ValueError('step_aggregate runs on cuda or cpu tensors, not %s'
+                         % dev)
+    seg = segments
+    n_rows = int(seg.blk_row.shape[0])
+    if n_rows == 0:                     # nothing masked in: no launch
+        return targets
+    n_long = int((seg.blk_len >= STEP_BLOCK_ROW).sum())
+    nt = len(targets)
+    tg = [t.data_ptr() for t in targets] + [None]
+    cf = [None if c is None else c.data_ptr() for c in coef[:nt]] + [None]
+    dc = [float(x) for x in decay[:nt]] + [0.0]
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.step_agg_launch(
+            tg[0], tg[1], cf[0], cf[1], dc[0], dc[1], G.data_ptr(),
+            seg.blk_row.data_ptr(), seg.blk_seg0.data_ptr(),
+            seg.blk_seg1.data_ptr(), seg.seg_ptr.data_ptr(),
+            seg.ent_fix.data_ptr(), seg.ent_m.data_ptr(), float(step),
+            G.shape[1], n_rows, n_long, int(bool(row_mean)), nt,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc)
+    step_aggregate.launches += 1
+    return targets
+
+
+step_aggregate.launches = 0
+
+
 def _raise_on(lib, rc):
     if rc != 0:
         raise RuntimeError('window_agg kernel launch failed: CUDA error %d '
@@ -204,13 +363,18 @@ def _raise_on(lib, rc):
 
 
 def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window_agg_error_string.argtypes = [i]
     lib.window_agg_error_string.restype = ctypes.c_char_p
-    lib.window_agg_launch.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.window_agg_scratch_ints.argtypes = [i]
+    lib.window_agg_scratch_ints.restype = ctypes.c_longlong
+    lib.window_agg_launch.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p]
     lib.window_agg_launch.restype = i
     lib.scan_agg_launch.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.scan_agg_launch.restype = i
+    lib.step_agg_launch.argtypes = [p, p, p, p, f, f, p, p, p, p, p, p, p, f,
+                                    i, i, i, i, i, p]
+    lib.step_agg_launch.restype = i
 
 
 def _library():

@@ -39,10 +39,13 @@ RMSE_RTOL = 1e-5
 @pytest.mark.parametrize('use_kernel,segments,k', [(False, False, 6),
                                                    (False, True, 6),
                                                    (True, False, 6),
-                                                   (False, False, 130)])
+                                                   (False, False, 130),
+                                                   (True, True, 6),
+                                                   (False, True, 130)])
 def test_fn_epoch_matches_jax(use_kernel, segments, k, jax_base_interpret):
     '''k=130: [gX | gY] is wider than K4 takes, so X and Y aggregate in
-    two calls.'''
+    two calls per batch, or with a segment table in two ``step_aggregate``
+    launches; at k=6 a table makes the X/Y step one launch.'''
     Pa, Qa, jl, tl, mu, nrm, W = _setup(k, segments=segments)
     rng = np.random.default_rng(4)
     X = rng.normal(0, 0.05, (40 + W, k)).astype(np.float32)

@@ -14,9 +14,10 @@ bf16 at the same places, but an f32 ulp from FMA contraction or
 summation order can flip one bf16 rounding of the window read.  K2:
 atol 1e-4, rtol 1e-3 (tests/test_als.py:303, f32 sums in another
 order).  K4: counts exactly, sums atol 1e-5 + rtol 1e-5 (the same bf16
-rows summed in f32 in another order).  The SVD++ and FN epochs of a CUDA
-model against a CPU model's, P1 and P2 and the A/B tool's 'old' epoch:
-K1's tolerances.'''
+rows summed in f32 in another order); K4's item step: atol 1e-5 plus 1 %
+of the largest change (STEP_UPD_TOL, below).  The SVD++ and FN epochs of
+a CUDA model against a CPU model's, P1 and P2 and the A/B tool's 'old'
+epoch: K1's tolerances.'''
 import numpy as np
 import pytest
 import torch
@@ -150,19 +151,20 @@ def test_half_pass_kernel_matches_plain(cuda, k, opts):
 
 
 def test_half_pass_kernel_long_rows(cuda):
-    '''Rows of at least WIDE_ROW ratings run in 32-warp blocks on a second
-    stream beside the 8-warp blocks: both against the plain version.'''
+    '''Rows of at least CLUSTER_ROW ratings run as thread-block clusters
+    on a second stream beside the 8-warp blocks: both against the plain
+    version.'''
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     nb, B, W, k, T = 3, 8192, 16, 66, 8
     rng = np.random.default_rng(9)
     kl = np.sort(rng.integers(0, W, (nb, B)), axis=1).astype(np.int32)
-    kl[:, : B // 2] = 0                      # one row of 3 x 4096 + ratings
+    kl[:, : 3 * B // 4] = 0                  # one row of 3 x 6144 + ratings
     lo = np.zeros(nb, np.int32)
     m = np.ones((nb, B), np.float32)
     r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
     fix = rng.integers(0, 500, (nb, B)).astype(np.int32)
     seg = hk.build_segments(fix, r, m, kl, lo, W, cuda)
-    assert seg.n_wide == 1 and seg.longest >= 3 * B // 2
+    assert seg.n_cluster == 1 and seg.longest >= 9 * B // 4
     F0 = torch.from_numpy(
         rng.normal(0, 0.1, (W, k)).astype(np.float32)).to(cuda)
     Ffix = torch.from_numpy(rng.normal(0, 0.1, (500, k)).astype(
@@ -343,8 +345,13 @@ K4_TOL = dict(atol=1e-5, rtol=1e-5)
     (8, 64, 3000, 'random'), (64, 512, 16384, 'sorted'),
     (66, 128, 16384, 'sorted'), (130, 512, 3001, 'random'),
     (256, 16, 2000, 'one_id'), (1, 1, 777, 'random'),
-    (66, 128, 4096, 'all_masked'), (33, 40, 0, 'random')])
+    (66, 128, 4096, 'all_masked'), (33, 40, 0, 'random'),
+    (66, 128, 16384, 'one_id'), (16, 512, 100, 'random'),
+    (64, 4000, 9000, 'random'), (256, 1, 300, 'random')])
 def test_window_agg_kernel_matches_plain(cuda, k, W, B, case):
+    '''Unsorted and sorted ids, one row holding the whole batch, mostly
+    empty rows (B < W), W=1, k=1 and 256, and a window too wide for the
+    index list's counts in shared memory (W=4000).'''
     from mfrec_tpu_torch.ops import window_agg_kernel as wak
     rng = np.random.default_rng(k + W + B)
     g = rng.normal(0, 1, (B, k)).astype(np.float32)
@@ -423,7 +430,8 @@ def _tier_inputs(dev, W=64, k=16, U=500, I=300):
 @pytest.mark.parametrize('tier', ['implicit', 'fn'])
 def test_cuda_tier_epochs_match_cpu(cuda, tier):
     '''Two SVD++ or FN epochs with use_kernel=True on CUDA tensors (K1,
-    K4) against the same epochs on CPU tensors (their plain versions).'''
+    K4's phase launches and the item step) against the same epochs on CPU
+    tensors (their plain versions: the per-batch item step).'''
     from mfrec_tpu_torch.ops import fn as fn_ops
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     from mfrec_tpu_torch.ops import sgd_mf
@@ -441,13 +449,15 @@ def test_cuda_tier_epochs_match_cpu(cuda, tier):
                 inner_steps=8, use_kernel=True)
             state = (Pa, Qa, X, Y)
         counts = (hk.half_pass.launches, wak.scan_aggregate.launches,
-                  wak.window_aggregate.launches)
+                  wak.window_aggregate.launches, wak.step_aggregate.launches)
         for _ in range(2):
             *state, rmse = ep(*state, mu, pl_, ql_, nrm)
         got = (hk.half_pass.launches - counts[0],
                wak.scan_aggregate.launches - counts[1],
-               wak.window_aggregate.launches - counts[2])
-        assert got == ((4, 4, 2 * nq) if dev == 'cuda' else (0, 0, 0))
+               wak.window_aggregate.launches - counts[2],
+               wak.step_aggregate.launches - counts[3])
+        # the item step: one launch per epoch, none per batch
+        assert got == ((4, 4, 0, 2) if dev == 'cuda' else (0, 0, 0, 0))
         out[dev] = [x.cpu() for x in state] + [float(rmse)]
     for a, b in zip(out['cuda'][:-1], out['cpu'][:-1]):
         torch.testing.assert_close(a, b, **K1_TOL)
@@ -598,3 +608,171 @@ def test_cuda_old_epoch_matches_cpu(cuda):
     torch.testing.assert_close(out['cuda'][0], out['cpu'][0], **K1_TOL)
     torch.testing.assert_close(out['cuda'][1], out['cpu'][1], **K1_TOL)
     assert out['cuda'][2] == pytest.approx(out['cpu'][2], rel=1e-3)
+
+
+@pytest.mark.parametrize('path', ['sgd', 'svdpp', 'fn', 'logistic',
+                                  'logistic_f32', 'bias_none'])
+@pytest.mark.parametrize('k', [6, 64, 66, 130, 256])
+def test_half_pass_instantiations_match_plain(cuda, k, path):
+    '''K1 against its plain version for every build and column shape a
+    path of the port launches: SGD (bf16 fixed rows), SVD++ (f32), FN
+    (f32, learned biases, user factors frozen), the logistic link on
+    either fixed side, bias_mode 'none'; k=6 is the packed tail slot
+    alone, 66 and 130 full slots plus a packed tail, 64 and 256 full
+    slots only.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    nb, B, W, n_upd, n_fix, T = 3, 1024, 32, 200, 150, 8
+    batches = _k1_batches(nb, B, W, n_upd, n_fix, seed=k + len(path))
+    rng = np.random.default_rng(k)
+    F0 = torch.from_numpy(
+        rng.normal(0, 0.1, (n_upd, k)).astype(np.float32)).to(cuda)
+    Ffix = torch.from_numpy(
+        rng.normal(0, 0.1, (n_fix, k)).astype(np.float32)).to(cuda)
+    if path in ('sgd', 'logistic', 'bias_none'):
+        Ffix = Ffix.to(torch.bfloat16)
+    learned = path == 'fn'
+    lrv, regv = (torch.from_numpy(a).to(cuda) for a in sgd_mf.column_rates(
+        k - 2, True, 0.15, 0.02, 0.02, 0.05, 0.05, 0.02, 0.02, learned,
+        freeze_user_factors=learned))
+    opts = {'logistic': dict(link='logistic', clamp_pred=False),
+            'logistic_f32': dict(link='logistic', clamp_pred=False),
+            'bias_none': dict(bias_none=True)}.get(path, {})
+    mu = 0.0 if path.startswith('logistic') else 3.4
+    seg = hk.build_segments(*batches, W, cuda)
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in batches)
+    Fk, Fp = F0.clone(), F0.clone()
+    before = hk.half_pass.launches
+    sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
+    torch.cuda.synchronize()
+    assert hk.half_pass.launches == before + 1
+    sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
+    torch.testing.assert_close(Fk, Fp, **K1_TOL)
+    assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert float((Fk - F0).abs().max()) > 0
+    frozen = lrv == 0
+    assert torch.equal(Fk[:, frozen], F0[:, frozen])
+
+
+@pytest.mark.parametrize('k', [66, 130])
+@pytest.mark.parametrize('delta', [-1, 0])
+def test_half_pass_cluster_threshold(cuda, k, delta):
+    '''A row of CLUSTER_ROW - 1 ratings (8-warp block) and one of
+    CLUSTER_ROW (a cluster), over three batches, against the plain version;
+    a second launch from the same factors is bit-identical (the cluster's
+    partials are summed in rank order).'''
+    _cluster_case(cuda, k, delta, seed=k - delta)
+
+
+@pytest.mark.parametrize('f32_fix', [False, True])
+@pytest.mark.parametrize('delta', [-1, 0])
+def test_half_pass_cluster_threshold_logistic(cuda, delta, f32_fix):
+    '''As test_half_pass_cluster_threshold through the logistic link's
+    builds (bf16 and f32 fixed rows), whose cluster rows run the same
+    cluster kernel.'''
+    _cluster_case(cuda, 66, delta, seed=7 - delta, f32_fix=f32_fix,
+                  link='logistic', clamp_pred=False)
+
+
+def _cluster_case(cuda, k, delta, seed, f32_fix=False, **opts):
+    '''A row of CLUSTER_ROW + delta ratings beside short rows, over
+    three batches: the kernel against its plain version and a second
+    launch bit-identical.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    n = hk.CLUSTER_ROW + delta
+    nb, B, W, T = 3, 8192, 16, 8
+    rng = np.random.default_rng(seed)
+    kl = np.sort(rng.integers(1, W, (nb, B)), axis=1).astype(np.int32)
+    kl[:2, :3 * B // 4] = 0
+    kl[2, :n - 3 * B // 2] = 0
+    kl.sort(axis=1)
+    lo = np.zeros(nb, np.int32)
+    m = np.ones((nb, B), np.float32)
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, 700, (nb, B)).astype(np.int32)
+    seg = hk.build_segments(fix, r, m, kl, lo, W, cuda)
+    assert int(seg.blk_len[0]) == n and seg.n_cluster == (delta == 0)
+    F0 = torch.from_numpy(
+        rng.normal(0, 0.1, (W, k)).astype(np.float32)).to(cuda)
+    Ffix = torch.from_numpy(rng.normal(0, 0.1, (700, k)).astype(
+        np.float32)).to(cuda)
+    if not f32_fix:
+        Ffix = Ffix.to(torch.bfloat16)
+    lrv = torch.full((k,), 0.1, device=cuda)
+    regv = torch.full((k,), 0.02, device=cuda)
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in (fix, r, m, kl, lo))
+    mu = 0.0 if opts.get('link') == 'logistic' else 3.4
+    Fk, Fp, Fa = F0.clone(), F0.clone(), F0.clone()
+    sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
+    sse_a = hk.half_pass(Fa, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
+    sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
+    torch.testing.assert_close(Fk, Fp, **K1_TOL)
+    assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert torch.equal(Fk, Fa) and float(sse_k) == float(sse_a)
+    assert float((Fk - F0).abs().max()) > 0
+
+
+# the item step against its plain version: within K4's atol plus 1 % of
+# the largest change.  The first segment of a row sums the same bf16
+# terms in another f32 order; the row then differs by an ulp, which can
+# flip one bf16 rounding of a later segment's term (2^-9 of it) -- far
+# below 1 % of what the step moves.
+STEP_UPD_TOL = 1e-2
+
+
+@pytest.mark.parametrize('kind,k', [('svdpp', 64), ('fn', 64), ('svdpp', 3),
+                                    ('svdpp', 256), ('fn', 128),
+                                    ('fn_x', 130)])
+@pytest.mark.parametrize('row_mean', [True, False])
+def test_step_aggregate_kernel_matches_plain(cuda, kind, k, row_mean,
+                                             record_property):
+    '''The fused item step against its plain version on an item layout
+    with hot rows above the block threshold (STEP_BLOCK_ROW) that span
+    several batches, SVD++'s Y and FN's X (residual-weighted) and Y (2k
+    up to 256), or FN's X alone (its launch when 2k > 256); a second
+    launch from the same targets is bit-identical.
+    Each target's error, largest change and whether K4's tolerance alone
+    would hold go to the junit XML (``--junitxml``).'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    rng = np.random.default_rng(k + len(kind))
+    U, I, N = 3000, 200, 60000
+    u = rng.integers(0, U, N).astype(np.int32)
+    i = np.minimum(rng.geometric(0.02, N) - 1, I - 1).astype(np.int32)
+    i[:3000] = 0                     # a hot item over two batches of 2048
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    lay = sgd_mf.sorted_pass_layout(u, i, v, 2048, axis='item',
+                                    max_window=64)
+    seg = hk.build_segments(lay[0], lay[2], lay[3], lay[4], lay[5], 64, cuda)
+    assert int(seg.blk_len[0]) >= 2 * wak.STEP_BLOCK_ROW
+    assert seg.longest_segments >= 2
+    G = torch.from_numpy(rng.normal(0, 0.1, (U + 64, k)).astype(
+        np.float32)).to(cuda)
+    T0 = [torch.from_numpy(rng.normal(0, 0.1, (I + 64, k)).astype(
+        np.float32)).to(cuda) for _ in range(2 if kind == 'fn' else 1)]
+    coef = (torch.from_numpy(rng.normal(0, 1, int(seg.ent_r.shape[0]))
+                             .astype(np.float32)).to(cuda), None) \
+        if kind.startswith('fn') else (None,)
+    kw = dict(coef=coef, decay=(0.02, 0.03)[:len(T0)], step=0.1,
+              row_mean=row_mean)
+    before = wak.step_aggregate.launches
+    got = wak.step_aggregate([t.clone() for t in T0], G, seg, **kw)
+    again = wak.step_aggregate([t.clone() for t in T0], G, seg, **kw)
+    torch.cuda.synchronize()
+    assert wak.step_aggregate.launches == before + 2
+    want = wak.step_aggregate_ref([t.clone() for t in T0], G, seg, **kw)
+    for x, (a, b, w, t0) in enumerate(zip(got, again, want, T0)):
+        moved = float((w - t0).abs().max())
+        diff = (a - w).abs()
+        record_property('target%d' % x, dict(
+            max_abs_err=float(diff.max()), moved=moved,
+            k4_tol_alone=bool((diff <= K4_TOL['atol']
+                               + K4_TOL['rtol'] * w.abs()).all())))
+        assert moved > 0
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=K4_TOL['atol'] + STEP_UPD_TOL * moved)
+        assert torch.equal(a, b)

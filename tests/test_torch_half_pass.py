@@ -287,3 +287,43 @@ def test_wrapper_refusals():
                             np.array([[1.0, 0.0]]), np.array([[3, 99]]), [5],
                             W, 'cpu')
     assert seg.blk_row.tolist() == [8] and seg.ent_r.shape[0] == 1
+
+
+@pytest.mark.parametrize('small', [False, True])
+@pytest.mark.parametrize('axis', ['user', 'item'])
+def test_block_lengths_and_cluster_rows_match_numpy(axis, small,
+                                                    monkeypatch):
+    '''The segment table's block order and host-side block lengths
+    (``blk_len``, ``n_cluster``: they choose K1's cluster rows and the
+    item step's block rows) against a numpy oracle: each updated row's
+    masked-in ratings counted from the layout; K1's cluster rows (at
+    least CLUSTER_ROW ratings and CLUSTER_SEG per segment) first, then the
+    rest, each longest first with ties in row order.  ``small`` lowers
+    the thresholds so that this small layout has cluster rows.'''
+    if small:
+        monkeypatch.setattr(hk, 'CLUSTER_ROW', 70)
+        monkeypatch.setattr(hk, 'CLUSTER_SEG', 30)
+    U, I = 60, 40
+    u, i, v = _stream(U, I, N=3000, seed=5)
+    lay = sgd_mf.sorted_pass_layout(u, i, v, 64, axis=axis, max_window=16)
+    fix = lay[1] if axis == 'user' else lay[0]
+    m = lay[3].copy()
+    m[0, :7] = 0.0                           # some masked-out ratings
+    seg = hk.build_segments(fix, lay[2], m, lay[4], lay[5], lay[-1], 'cpu')
+    key = lay[5][:, None] + lay[4]
+    counts = np.bincount(key[m != 0])
+    nseg = np.array([sum(bool(((key[b] == x) & (m[b] != 0)).any())
+                         for b in range(key.shape[0]))
+                     for x in range(counts.size)])
+    present = np.flatnonzero(counts)
+    order = present[np.argsort(-counts[present], kind='stable')]
+    clu = (counts >= hk.CLUSTER_ROW) & (counts >= hk.CLUSTER_SEG * nseg)
+    want = [x for x in order if clu[x]] + [x for x in order if not clu[x]]
+    assert seg.blk_row.tolist() == want
+    np.testing.assert_array_equal(seg.blk_len, counts[want])
+    assert seg.blk_len.dtype == np.int64 and seg.longest == counts.max()
+    assert seg.n_cluster == int(clu.sum())
+    assert (seg.n_cluster > 0) == (small and axis == 'item')
+    assert seg.n_wide == int((counts >= hk.WIDE_ROW).sum())
+    for thr in (1, 40, 80, 10 ** 9):
+        assert int((seg.blk_len >= thr).sum()) == int((counts >= thr).sum())

@@ -14,8 +14,9 @@ lr * 2^-8 * |g| / cnt):
   one-hot product is that path's einsum.  Same bounds;
 - ``make_alternating_implicit_epoch`` on both numerics paths (the
   Pallas one with the JAX base epoch in interpret mode) and through both
-  aggregation routes (per batch, or one launch over the segment table):
-  factors and Y within 1e-4, RMSE within 1e-5 relative;
+  aggregation and item-step routes (per batch, or one launch over the
+  segment table: ``scan_aggregate`` and ``step_aggregate``): factors and
+  Y within 1e-4, RMSE within 1e-5 relative;
 - ``GDRecommender(device='cpu').feature_training_implicit()`` against
   the JAX model (engine pinned to 'alternating': under the suite's
   8-device mesh the JAX model's 'auto' picks the sharded tier): RMSE
@@ -141,7 +142,8 @@ def jax_base_interpret(monkeypatch):
 
 @pytest.mark.parametrize('use_kernel,segments', [(False, False),
                                                  (False, True),
-                                                 (True, False)])
+                                                 (True, False),
+                                                 (True, True)])
 def test_implicit_epoch_matches_jax(use_kernel, segments,
                                     jax_base_interpret):
     k = 6

@@ -269,3 +269,51 @@ def test_unported_options_raise(over, exc):
     m.set_ratings(u, i, v)
     with pytest.raises(exc):
         m.train(handle_bias=True)
+
+
+def test_model_matches_jax_at_default_sweeps():
+    '''The default inner_steps=128: JAX and port GDRecommenders at rank
+    6, 80 users x 50 items, 1,500 ratings, 3 epochs, the same init (the
+    same seed draws the same factors, bit for bit).
+
+    The RMSE history is held to 1e-5 relative.  The factors are held to
+    the drift that bf16 flips can build up, not to FACTOR_ATOL: f32 sums
+    in another order can flip one bf16 rounding of a gradient term, which
+    moves a row by at most lr * 2^-8 * |g| / cnt in one sweep (see the
+    top of this file), with |g| <= ((hi - lo) + K) * max|F| (the error is
+    at most hi - lo, the fixed row and the decayed row at most max|F|)
+    and cnt at least the fewest ratings of any rated row.  The whole
+    stream is one batch per half-pass, so a row sees 128 sweeps per
+    epoch: the bound is 3 * 128 such moves, 0.168 here (lr 0.15, max|F|
+    1.85, cnt_min 10).  Measured drift 5.8e-4 (items' Q; the biases
+    agree exactly): the two models differ only in the f32 summation
+    order of the XLA-branch sweeps.'''
+    rng = np.random.default_rng(11)
+    U, I, N = 80, 50, 1500
+    u = rng.integers(0, U, N).astype(np.int32)
+    i = rng.integers(0, I, N).astype(np.int32)
+    v = rng.integers(1, 6, N).astype(np.float32)
+    params = {'nbr_features': 6, 'min_epochs': 3, 'max_epochs': 3,
+              'engine': 'alternating', 'feature_init': 0.05}
+    a = JaxGD(U, I, params)
+    b = GDRecommender(U, I, params, device='cpu')
+    assert b.inner_steps == 128 and b.batch_size >= N
+    for m in (a, b):
+        m.seed(2)
+        m.set_ratings(u, i, v)
+        m.train(handle_bias=True)
+    np.testing.assert_allclose(b.get_rmse_history(), a.get_rmse_history(),
+                               rtol=RMSE_RTOL)
+    assert len(b.rmse_history) == 3
+    lr, _, _ = b._alt_lrs()
+    cnt_min = min(int(np.bincount(x)[np.bincount(x) > 0].min())
+                  for x in (u, i))
+    fmax = max(float(np.abs(np.asarray(getattr(a, n))).max())
+               for n in ('P', 'Q'))
+    move = lr * 2.0 ** -8 * ((5.0 - 1.0) + b.K) * fmax / cnt_min
+    bound = 3 * 128 * move
+    for name in ('P', 'Q', 'users_bias', 'items_bias'):
+        got, want = getattr(b, name), np.asarray(getattr(a, name))
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=bound, rtol=0,
+                                   err_msg=name)

@@ -162,3 +162,108 @@ def test_wrapper_checks():
                          check_ids=False)
     ref = window_aggregate_ref(g, kl, m, 4)
     assert torch.equal(ref[1], cnt)
+
+
+def _step_case(seed=4, W=8, U=50, I=30, N=1200, B=64, k=5):
+    '''An item layout whose hot items span several batches, with
+    overlapping windows, seeded factors, G and the biases.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, U, N).astype(np.int32)
+    i = np.minimum(rng.geometric(0.12, N) - 1, I - 1).astype(np.int32)
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    lay = jax_sgd.sorted_pass_layout(u, i, v, B, axis='item', max_window=W)
+    seg = hk.build_segments(lay[0], lay[2], lay[3], lay[4], lay[5], W, 'cpu')
+    f = {name: torch.from_numpy(rng.normal(0, 0.3, shape).astype(np.float32))
+         for name, shape in (('X', (I + W, k)), ('Y', (I + W, k)),
+                             ('G', (U + W, k)), ('bu', (U + W,)),
+                             ('bi', (I + W,)))}
+    return lay, seg, f
+
+
+def _per_batch_step(lay, f, K_x, K_y, step, row_mean, fn):
+    '''The per-batch item step of make_alternating_implicit_epoch (Y) or
+    make_fn_alternating_epoch (X and Y), window by window.'''
+    ub, ib, rb, mb, kl, lo, W = (torch.from_numpy(np.asarray(a))
+                                 if not isinstance(a, int) else a
+                                 for a in lay)
+    X, Y, G = f['X'].clone(), f['Y'].clone(), f['G']
+    mu = torch.tensor(3.1)
+    for b, start in enumerate(lo.tolist()):
+        winX, winY = X[start:start + W], Y[start:start + W]
+        kll = kl[b].long()
+        Gu = G[ub[b].long()]
+        gY = Gu - K_y * winY[kll]
+        if fn:
+            resid = rb[b] - (mu + f['bu'][ub[b].long()] + f['bi'][ib[b].long()])
+            gX = resid[:, None] * Gu - K_x * winX[kll]
+            agg = sgd_mf._agg_window(torch.cat([gX, gY], 1), kl[b], mb[b],
+                                     W, row_mean)
+            k = Gu.shape[1]
+            winX.copy_(winX + step * agg[:, :k])
+            winY.copy_(winY + step * agg[:, k:])
+        else:
+            winY.copy_(winY + step * sgd_mf._agg_window(gY, kl[b], mb[b], W,
+                                                        row_mean))
+    return X, Y
+
+
+@pytest.mark.parametrize('row_mean', [True, False])
+@pytest.mark.parametrize('kind', ['svdpp', 'fn'])
+def test_step_aggregate_ref_is_the_per_batch_loop(kind, row_mean):
+    '''The fused item step's plain version equals the per-batch
+    ``_agg_window`` loop it replaces, bit for bit on the CPU: SVD++'s Y,
+    and FN's X (weighted by the entries' residuals) and Y together.'''
+    lay, seg, f = _step_case()
+    assert seg.longest_segments >= 3          # a row spans several batches
+    step, K_x, K_y = 0.07, 0.02, 0.03
+    wantX, wantY = _per_batch_step(lay, f, K_x, K_y, step, row_mean,
+                                   kind == 'fn')
+    X, Y = f['X'].clone(), f['Y'].clone()
+    if kind == 'fn':
+        mu = torch.tensor(3.1)
+        resid = seg.ent_r - (mu + f['bu'][seg.ent_fix.long()]
+                             + f['bi'][seg.ent_row.long()])
+        out = window_agg_kernel.step_aggregate(
+            (X, Y), f['G'], seg, coef=(resid, None), decay=(K_x, K_y),
+            step=step, row_mean=row_mean)
+        assert out[0] is X and out[1] is Y
+        assert torch.equal(X, wantX)
+    else:
+        window_agg_kernel.step_aggregate((Y,), f['G'], seg, decay=(K_y,),
+                                         step=step, row_mean=row_mean)
+        assert torch.equal(X, f['X'])
+    assert torch.equal(Y, wantY)
+    assert float((Y - f['Y']).abs().max()) > 0
+
+
+def test_step_aggregate_nothing_masked_in():
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    lay, _, f = _step_case()
+    seg = hk.build_segments(lay[0], lay[2], np.zeros_like(lay[3]), lay[4],
+                            lay[5], lay[-1], 'cpu')
+    Y = f['Y'].clone()
+    window_agg_kernel.step_aggregate((Y,), f['G'], seg, decay=(0.1,),
+                                     step=0.5)
+    assert torch.equal(Y, f['Y'])
+
+
+def test_step_aggregate_checks():
+    lay, seg, f = _step_case()
+    Y, G = f['Y'], f['G']
+    step = window_agg_kernel.step_aggregate
+    with pytest.raises(ValueError):                     # three targets
+        step((Y, Y, Y), G, seg, coef=(None,) * 3, decay=(0.0,) * 3)
+    with pytest.raises(ValueError):                     # k * 2 > 256
+        step((torch.zeros((40, 130)),) * 2, torch.zeros((60, 130)), seg)
+    with pytest.raises(ValueError):                     # G too short
+        step((Y,), G[:3], seg)
+    with pytest.raises(ValueError):                     # f64 target
+        step((Y.double(),), G, seg)
+    with pytest.raises(ValueError):                     # coef of the wrong size
+        step((Y,), G, seg, coef=(torch.ones(3),))
+    with pytest.raises(ValueError):                     # no fallback
+        step((Y.to('meta'),), G.to('meta'), seg._replace(**{
+            f_: getattr(seg, f_).to('meta') for f_ in (
+                'blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr', 'ent_fix',
+                'ent_m', 'ent_row')}))
