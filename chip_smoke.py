@@ -10,6 +10,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --ab k1 A B B A   # K1 in checkouts A and B
     python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
+    python3 chip_smoke.py --ab als A B B A  # the ALS CG path, the same way
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -21,7 +22,10 @@ Phase 2  each kernel against its plain PyTorch version on the card:
          k=66) in each path's build (SGD bf16 T=128, SVD++ and FN f32),
          the most-rated item's whole chain (a cluster row), edge cases
          and a whole half-pass at a reduced size, then whole half-passes
-         and the longest chain timed; K4's per-call sum at the JAX
+         and the longest chain timed; K2's M-given entry on edge cases
+         and at the largest user bucket's shape, and the fused K2 on
+         seeded buckets (k 8 to 256, L 8 to 16,384); K4's per-call sum at
+         the JAX
          call's shape on real ML-10M-layout batches (B=16384, W=128,
          k=66; a user batch and the hottest item batch), at W=512, on a
          whole W=512 layout (the phase aggregation), the fused SVD++ /
@@ -43,12 +47,17 @@ Phase 4  the training slice end to end at the same shape:
 Phase 5  the WRMF/ALS slice end to end at bench_als's shape (69,878 x
          10,677, 23M raw implicit draws, rank 64):
          ``WRMFRecommender.train()`` with solver 'cg' (6 PCG steps, 3
-         after 2 epochs) through K2, timed as phase 4 is, K2's launch
-         count, the held-out P@5 gate through K3 against the popularity
-         floor, K2 on a real bucket against its plain version and the
-         exact solver, the split of each half-sweep, and a CUDA model's
-         CG epoch against a CPU model's.  Phase 2 also holds K2 to its
-         plain version on edge cases.
+         after 2 epochs) through the fused K2 (one launch per bucket:
+         gather, tensor-core Gram, PCG, write-back), timed as phase 4 is
+         but over a 2- and a 102-epoch run, with ``train()``'s fixed
+         set-up, its launch count, the held-out P@5 gate through K3 against the
+         popularity floor, the fused K2 on the largest user bucket and
+         the hottest item bucket against its plain version (M and b
+         against a float64 Gram) beside the parent's composition and the
+         exact solver, K2's M-given entry on real systems, the split of
+         each half-sweep, one warm epoch's kernels and idle share, and a
+         CUDA model's CG epoch against a CPU model's.  Phase 2 also holds
+         both K2 entries to their plain versions on edge cases.
 Phase 6  the SVD++ tier end to end at the ML-10M shape:
          ``GDRecommender.feature_training_implicit()`` through K1 and K4
          (W=512, batch 16384, T=32, f32 fixed side), timed as phase 4
@@ -75,10 +84,13 @@ Phase 8  the probe tools: P1 and P2 against their plain versions on the
          K1's launch counts over that run.
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
-the hot item's chain, the logistic link's item half-pass and chain) or
-K4's per-call sum (CUDA events and device time beside ``index_add_``) in
-each checkout named, each in a process of its own with its own modules
-and kernel builds, and prints one ``AB <mode> {...}`` JSON line each.
+the hot item's chain, the logistic link's item half-pass and chain),
+K4's per-call sum (CUDA events and device time beside ``index_add_``) or
+the ALS CG path (a warm epoch, each half-sweep, the largest user and
+hottest item buckets, by CUDA events; the public ``train()`` at 0, 3
+and 22 epochs on the host clock) in each checkout named, each in a
+process of its own with its own modules and kernel builds, and prints
+one ``AB <mode> {...}`` JSON line each.
 
 Any failure exits non-zero.  On success the line before the last is the
 kernels' JSON summary and the last line is
@@ -89,6 +101,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -111,6 +124,7 @@ K1_RTOL = 5e-2
 K1_SSE_RTOL = 1e-3         # the t=0 residuals summed in another order
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 ML10M = dict(U=69_878, I=10_677, nnz=10_000_000)
 # K2 against its plain version: the tolerance of tests/test_als.py:303
@@ -218,11 +232,13 @@ def phase1():
     log('card: %s' % card_line())
     t0 = time.perf_counter()
     k1 = tuple(half_pass_kernel.LIBRARIES.values())
-    names = ('topn',) + k1 + ('pcg', 'window_agg', 'half_pass_old', 'probe')
+    names = ('topn',) + k1 + ('pcg', 'cg_bucket', 'window_agg',
+                              'half_pass_old', 'probe')
     _cuda_build.build(names)
     for mod in (topn_kernel, cg_kernel, window_agg_kernel,
                 half_pass_old_kernel, probe_kernel):
         mod._library()
+    cg_kernel._bucket_library()
     for name in k1:
         half_pass_kernel._library(name)
     log('built %s in %.1f s' % (', '.join('csrc/%s.cu' % x for x in names),
@@ -289,7 +305,8 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
 
 
 def phase2():
-    return (phase2_topn(), phase2_half_pass(), phase2_pcg(),
+    return (phase2_topn(), phase2_half_pass(),
+            {'pcg': phase2_pcg(), 'bucket': phase2_cg_bucket()},
             phase2_window_agg())
 
 
@@ -1060,6 +1077,287 @@ def phase2_pcg(device='cuda'):
     return recs
 
 
+# the fused K2's M and b against a float64 Gram of the same bf16
+# operands: within (ceil(count / 32) + 72) u of the absolute sum of the
+# terms, u = 2^-24, plus u |HHreg| for M's last add (b: ceil(count / 32)
+# + 36).  A chunk's 32 products are exact and summed by the tensor cores
+# in two mma steps, which need not round to nearest: if each step aligns
+# its 16 products and the accumulator to the largest exponent and
+# truncates (the behaviour measured on earlier NVIDIA tensor cores), each
+# of the 17 addends and the normalised sum lose less than 2u of the
+# chunk's absolute sum, 36 u a step, 72 u a chunk; the chunks' sums are
+# IEEE f32 adds, one rounding each (in a cluster row, a rank's chunks and
+# then the ranks' partials, fewer adds on any path than the row has
+# chunks): the recursive-summation bound
+# (Higham, Accuracy and Stability of Numerical Algorithms, 4.2).  b: 32
+# FMAs a chunk, then the adds of the chunks and of at most 4 parts.  A
+# Gram rounded to bf16 (2^-9 = 32,768 u) misses it by far at every count
+# the ALS epoch has (at most 1,961 chunks).
+GRAM_U = 2.0 ** -24
+GRAM_CHUNK = 32
+
+
+def bucket_counts(mask):
+    '''Each row's count as the fused K2 finds it: one past its last slot
+    with mask != 0.'''
+    import torch
+    pos = torch.arange(1, mask.shape[1] + 1, device=mask.device)
+    return ((mask != 0) * pos).amax(1) if mask.shape[1] else \
+        torch.zeros(mask.shape[0], dtype=torch.int64, device=mask.device)
+
+
+def cg_bucket_f64(Fb, HHreg, nbr_idx, nbr_val, mask, c_pos, alpha, k,
+                  chunk=2048):
+    '''One bucket's M and b in float64 from the operands the fused K2 and
+    the JAX body round to (Ab = Fb[idx] in bf16, cm1 and (1 + cm1) mask
+    in f32, Awb = bf16(Ab * bf16(cm1))), and the absolute sums of their
+    terms: (M64, b64, SM, Sb), [R, k, k] and [R, k].  ``chunk`` systems
+    at a time.'''
+    import torch
+    R = nbr_idx.shape[0]
+    dev = Fb.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    M64, SM = torch.empty((R, k, k), **f64), torch.empty((R, k, k), **f64)
+    b64, Sb = torch.empty((R, k), **f64), torch.empty((R, k), **f64)
+    H = HHreg.double()[None]
+    for s0 in range(0, R, chunk):
+        sl = slice(s0, s0 + chunk)
+        Ab = Fb[:, :k][nbr_idx[sl].long()]
+        c = float(alpha) * nbr_val[sl] if float(alpha) > 0 else \
+            torch.full_like(nbr_val[sl], float(c_pos))
+        cm1 = c * mask[sl]
+        Awb = (Ab.float() * cm1.to(torch.bfloat16).float()[..., None]).to(
+            torch.bfloat16)
+        A64, W64 = Ab.double(), Awb.double()
+        coef = ((1.0 + cm1) * mask[sl]).double()[:, None, :]
+        M64[sl] = H + torch.bmm(W64.transpose(1, 2), A64)
+        SM[sl] = torch.bmm(W64.abs().transpose(1, 2), A64.abs())
+        b64[sl] = torch.bmm(coef, A64)[:, 0]
+        Sb[sl] = torch.bmm(coef.abs(), A64.abs())[:, 0]
+    return M64, b64, SM, Sb
+
+
+def gram_within(M, b, M64, b64, SM, Sb, HHreg, counts):
+    '''M and b against the float64 Gram within GRAM_U's bound (above).
+    Returns (ok, max |M - M64|, max |b - b64|, the largest error over its
+    bound).'''
+    nch = ((counts + GRAM_CHUNK - 1) // GRAM_CHUNK).double()
+    tolM = (nch + 72)[:, None, None] * GRAM_U * SM + \
+        GRAM_U * HHreg.double().abs()[None]
+    tolb = (nch + 36)[:, None] * GRAM_U * Sb
+    eM, eb = (M.double() - M64).abs(), (b.double() - b64).abs()
+    ok = bool((eM <= tolM).all()) and bool((eb <= tolb).all())
+    ratio = max(float((eM / tolM.clamp(min=1e-300)).max()) if eM.numel()
+                else 0.0,
+                float((eb / tolb.clamp(min=1e-300)).max()) if eb.numel()
+                else 0.0)
+    return (ok, float(eM.max()) if eM.numel() else 0.0,
+            float(eb.max()) if eb.numel() else 0.0, ratio)
+
+
+def cg_bucket_bound(idx, mask, k, steps, c_pos, alpha):
+    '''The fused K2's least time on one bucket (``idx``, ``mask`` [R, L]
+    tensors), counted from what these inputs ask for, in ms, and what
+    sets it.  Bytes: the mask read whole; the ids of the real entries
+    (mask != 0) and, where alpha > 0, their values; the distinct fixed
+    rows they name, k bf16 each; HHreg, the row ids, x0 and x.
+    Operations: the Gram over the real entries on the bf16 tensor cores,
+    k (k + 1) each where alpha = 0 and bf16(c_pos) is a power of two (then
+    Awb = 2^e Ab exactly and the correction is symmetric), 2 k^2 each
+    otherwise; b on the f32 cores (k adds each at alpha = 0, 2 k
+    otherwise) and the PCG (2 k^2 (steps + 1) per system).  The tensor
+    cores and the f32 cores run side by side, so the bound is the largest
+    of the three times.'''
+    import torch
+    R, L = idx.shape
+    real = mask != 0
+    nnz = int(real.sum())
+    n_fix = int(torch.unique(idx[real]).numel())
+    w = float(torch.tensor(c_pos, dtype=torch.bfloat16))
+    symmetric = alpha == 0 and math.frexp(w)[0] == 0.5
+    nbytes = 4.0 * R * L + (4.0 if alpha == 0 else 8.0) * nnz + \
+        2.0 * n_fix * k + 4.0 * k * k + 4.0 * R + 8.0 * R * k
+    t_tensor = (k * (k + 1.0) if symmetric else 2.0 * k * k) * nnz \
+        / PEAK_BF16_TENSOR_FLOPS
+    t_f32 = ((k if alpha == 0 else 2.0 * k) * nnz
+             + 2.0 * R * k * k * (steps + 1)) / PEAK_F32_FLOPS
+    t_ops, t_bytes = max(t_tensor, t_f32), nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def cg_bucket_data(R, L, k, seed, device, hot=False, holes=False,
+                   empty_row=False):
+    '''A seeded bucket for the fused K2: F [3k + 50, k] ~ N(0, 0.3) (its
+    bf16 copy as ``cg_epoch`` makes it and HHreg = F^T F + 0.015 I), out
+    [R + 23, k] ~ N(0, 0.1), R distinct rows, each row's count uniform in
+    1..L with its real entries first and zero padding after (as
+    ``padded_rows`` lays them out), values in 1..5.  ``hot``: the first
+    row full; ``holes``: 30 % of the real slots masked out (a mask the
+    kernel must not read as a prefix); ``empty_row``: the second row has
+    no entry.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    rng = np.random.default_rng(seed)
+    n, n_upd = 3 * k + 50, R + 23
+    F = rng.normal(0, 0.3, (n, k)).astype(np.float32)
+    out = rng.normal(0, 0.1, (n_upd, k)).astype(np.float32)
+    rows = rng.permutation(n_upd)[:R].astype(np.int32)
+    counts = rng.integers(1, L + 1, R)
+    if hot and R:
+        counts[0] = L
+    if empty_row and R > 1:
+        counts[1] = 0
+    slots = np.arange(L)[None, :] < counts[:, None]
+    mask = slots.astype(np.float32)
+    if holes:
+        mask *= (rng.random((R, L)) > 0.3)
+    idx = np.where(slots, rng.integers(0, n, (R, L)), 0).astype(np.int32)
+    val = np.where(slots, rng.uniform(1, 5, (R, L)), 0).astype(np.float32)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    Ff = t(F)
+    return dict(Fb=als_ops._fixed_bf16(Ff), out=t(out),
+                HH=als_ops._hh(Ff, 0.015), rows=t(rows), idx=t(idx),
+                val=t(val), mask=t(mask))
+
+
+def cg_bucket_case(name, d, steps, c_pos=1.0, alpha=0.0, iters=0,
+                   plain_iters=0, yardsticks=False):
+    '''The fused K2 against its plain version (``cg_bucket_ref``) on one
+    bucket ``d`` (``cg_bucket_data``'s keys): M and b against the
+    float64 Gram (``gram_within``), x against the plain version within
+    PCG_ATOL/PCG_RTOL or, where f32 PCG trajectories drift apart mid-solve
+    (``pcg_case``), as close to the float64 iteration on the float64
+    Gram as the plain version is within a factor of 2; rows outside
+    ``rows`` untouched, ``steps=0`` returns x0 exactly, one launch on a
+    card.  With ``iters``: kernel, plain version and bound; with
+    ``yardsticks`` also the parent's composition (``cg_system`` +
+    ``pcg_solve_kernel`` + write-back, ``composed_ms``) and the exact
+    solver on the same systems.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    from mfrec_tpu_torch.ops.cg_kernel import cg_bucket_kernel, \
+        cg_bucket_ref, pcg_solve_kernel
+    out0, rows, Fb = d['out'], d['rows'], d['Fb']
+    R, L = d['idx'].shape
+    k = out0.shape[1]
+    on_card = out0.is_cuda
+    args = (d['HH'], rows, d['idx'], d['val'], d['mask'], c_pos, alpha,
+            steps)
+    before = cg_bucket_kernel.launches
+    outk, Mk, bk = cg_bucket_kernel(Fb, out0.clone(), *args,
+                                    return_system=True)
+    if on_card:
+        torch.cuda.synchronize()
+    launched = cg_bucket_kernel.launches - before
+    outp, Mp, bp = cg_bucket_ref(Fb, out0.clone(), *args, return_system=True)
+    counts = bucket_counts(d['mask'])
+    M64, b64, SM, Sb = cg_bucket_f64(Fb, d['HH'], d['idx'], d['val'],
+                                     d['mask'], c_pos, alpha, k)
+    gram_ok, errM, errb, ratio = gram_within(Mk, bk, M64, b64, SM, Sb,
+                                             d['HH'], counts)
+    plain_errM = float((Mp.double() - M64).abs().max()) if R else 0.0
+    # the largest error of M in units of u times the absolute sum of its
+    # terms, HHreg's included
+    units = float(((Mk.double() - M64).abs() / (GRAM_U * (
+        SM + d['HH'].double().abs()[None])).clamp(min=1e-300)).max()) \
+        if R else 0.0
+    rl = rows.long()
+    xk, xp, x0 = outk[rl], outp[rl], out0[rl]
+    diff = (xk - xp).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    within = bool((diff <= PCG_ATOL + PCG_RTOL * xp.abs()).all())
+    x64 = als_ops.pcg_solve(M64, b64, x0.double(), steps)
+    kerr64 = float((xk.double() - x64).abs().max()) if R else 0.0
+    perr64 = float((xp.double() - x64).abs().max()) if R else 0.0
+    x_ok = bool(torch.isfinite(xk).all()) and (within or kerr64 <= 2 * perr64)
+    others = torch.ones(out0.shape[0], dtype=torch.bool, device=out0.device)
+    others[rl] = False
+    untouched = torch.equal(outk[others], out0[others])
+    zero_ok = steps != 0 or torch.equal(xk, x0)
+    launch_ok = launched == (1 if on_card and R else 0)
+    ok = gram_ok and x_ok and untouched and zero_ok and launch_ok
+    nnz = int((d['mask'] != 0).sum())
+    rec = {'case': name, 'R': R, 'L': L, 'k': k, 'steps': steps,
+           'alpha': alpha, 'c_pos': c_pos, 'nnz': nnz,
+           'max_count': int(counts.max()) if R else 0, 'ok': ok,
+           'max_abs_err': err, 'within_tolerance': within,
+           'kernel_err_f64': kerr64, 'plain_err_f64': perr64,
+           'gram_ok': gram_ok, 'M_err_f64': errM, 'b_err_f64': errb,
+           'plain_M_err_f64': plain_errM, 'gram_err_over_bound': ratio,
+           'M_err_u_abs_sum': units,
+           'untouched': untouched, 'launches': launched}
+    if iters:
+        outt = out0.clone()
+        rec['ms'] = timed_ms(lambda: cg_bucket_kernel(Fb, outt, *args), iters)
+        rec['plain_ms'] = timed_ms(lambda: cg_bucket_ref(Fb, outt, *args),
+                                   plain_iters or iters)
+        rec['bound_ms'], rec['bound_by'] = cg_bucket_bound(
+            d['idx'], d['mask'], k, steps, c_pos, alpha)
+        if yardsticks:
+            def composed():
+                M, b, x0_ = als_ops.cg_system(Fb, outt, *args[:-1])
+                outt[rl] = pcg_solve_kernel(M, b, x0_, steps)
+
+            rec['composed_ms'] = timed_ms(composed, plain_iters or iters)
+            rec['exact_ms'] = timed_ms(lambda: torch.cholesky_solve(
+                bp[..., None], torch.linalg.cholesky(Mp)), plain_iters or iters)
+    log('  %-40s ok=%s x err %.3g%s (f64: kernel %.3g, plain %.3g); M err '
+        '%.3g (plain %.3g; %.1f u of its terms), b err %.3g, %.2f of the '
+        'bound%s' % (
+            name, ok, err, '' if within else ' (outside atol %g rtol %g)'
+            % (PCG_ATOL, PCG_RTOL), kerr64, perr64, errM, plain_errM, units,
+            errb, ratio, ' kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)%s'
+            % (rec['ms'], rec['plain_ms'], rec['bound_ms'], rec['bound_by'],
+               ', composed %.3f ms, exact solver %.3f ms'
+               % (rec['composed_ms'], rec['exact_ms']) if yardsticks else '')
+            if iters else ''))
+    return rec
+
+
+def phase2_cg_bucket(device='cuda'):
+    '''The fused K2 against its plain version on seeded buckets: k from 8
+    to 256 (odd k padded to 16-byte rows; k = 256 streams M), L from 8 to
+    16,384 (one full hot row), masks with holes and an empty row, alpha 0
+    and 2 with c_pos 1.7, steps 0, 3 and 6, and R = 4,099 (two systems a
+    block); R = 0 launches nothing.'''
+    from mfrec_tpu_torch.ops.cg_kernel import cg_bucket_kernel
+    log('phase 2: the fused K2 (gather, Gram, PCG, write-back) against its '
+        'plain version (M, b: the float64 bound; x: atol %g, rtol %g)'
+        % (PCG_ATOL, PCG_RTOL))
+    cases = [('R=1 k=8 L=8', 1, 8, 8, 3, 0.0, {}),
+             ('R=37 k=20 L=64 alpha=2', 37, 64, 20, 6, 2.0, {}),
+             ('R=37 k=37 L=64 (odd k)', 37, 64, 37, 3, 0.0, {}),
+             ('R=37 k=64 L=64 steps=0', 37, 64, 64, 0, 2.0, {}),
+             ('R=37 k=64 L=256 holes, empty row', 37, 256, 64, 6, 2.0,
+              dict(holes=True, empty_row=True)),
+             ('R=37 k=130 L=64 alpha=2', 37, 64, 130, 3, 2.0, {}),
+             ('R=9 k=256 L=64 (M streamed)', 9, 64, 256, 3, 2.0, {}),
+             ('R=3 k=64 L=16384 hot row', 3, 16384, 64, 6, 0.0,
+              dict(hot=True)),
+             ('R=4099 k=64 L=256 (2 a block)', 4099, 256, 64, 3, 2.0, {})]
+    recs = []
+    for j, (name, R, L, k, steps, alpha, kw) in enumerate(cases):
+        d = cg_bucket_data(R, L, k, seed=100 + j, device=device, **kw)
+        recs.append(cg_bucket_case(name, d, steps, c_pos=1.7, alpha=alpha))
+    d = cg_bucket_data(0, 8, 64, seed=0, device=device)
+    before = cg_bucket_kernel.launches
+    out0 = d['out'].clone()
+    cg_bucket_kernel(d['Fb'], d['out'], d['HH'], d['rows'], d['idx'],
+                     d['val'], d['mask'], 1.0, 0.0, 3)
+    if cg_bucket_kernel.launches != before or not bool(
+            (d['out'] == out0).all()):
+        raise SystemExit('R=0 must launch nothing and change nothing')
+    bad = [r['case'] for r in recs if not r['ok']]
+    if bad:
+        raise SystemExit('phase 2 (fused K2) failed: %s' % bad)
+    return recs
+
+
 def k4_call_bound(n_in, B, k, W):
     '''K4's least time for one call: the masked-in rows of g read once,
     kl and mask read once, gsum and cnt written once, over the memory
@@ -1492,14 +1790,13 @@ def als_ranking_gate(P, Q, r_train, test_u, test_i, U, I, n=5,
     return hits_m / denom, hits_p / denom
 
 
-def k2_split(F_fix, F_upd, buckets, reg, steps):
+def k2_split(F_fix, F_upd, buckets, alive, reg, steps):
     '''Device time of one CG half-sweep, by CUDA events, split into the
-    gather + Gram assembly (``cg_system``), K2 and the rest (the fixed
-    side's Gram and bf16 cast, the write-backs), replaying
-    ``_bucket_cg_body``'s steps bucket by bucket.  Returns ms.'''
+    fused K2 (one launch per bucket) and the rest (the fixed side's Gram
+    ``_hh``, its bf16 cast, the alive mask), replaying ``cg_epoch``'s
+    half-sweep bucket by bucket.  Returns ms.'''
     import torch
     from mfrec_tpu_torch.ops import als as als_ops
-    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
 
     def ev():
         e = torch.cuda.Event(enable_timing=True)
@@ -1510,27 +1807,20 @@ def k2_split(F_fix, F_upd, buckets, reg, steps):
     torch.cuda.synchronize()
     t0 = ev()
     HHreg = als_ops._hh(F_fix, reg)
-    Fb = F_fix.to(torch.bfloat16)
-    gram = k2 = 0.0
+    Fb = als_ops._fixed_bf16(F_fix)
     marks = []
     for rows, nidx, nval, mask in buckets:
         a = ev()
-        M, b, x0 = als_ops.cg_system(Fb, F_upd, HHreg, rows, nidx, nval,
-                                     mask, 1.0, 0.0)
-        c = ev()
-        x = pcg_solve_kernel(M, b, x0, steps)
-        d = ev()
-        F_upd[rows.long()] = x
-        del M, b, x0, x
-        marks.append((a, c, d))
+        als_ops._bucket_cg_body(Fb, F_upd, HHreg, rows, nidx, nval, mask,
+                                1.0, 0.0, reg, steps, 'pallas')
+        marks.append((a, ev()))
+    F_upd.mul_(alive)
     t1 = ev()
     t1.synchronize()
-    for a, c, d in marks:
-        gram += a.elapsed_time(c)
-        k2 += c.elapsed_time(d)
+    per = [a.elapsed_time(c) for a, c in marks]
     total = t0.elapsed_time(t1)
-    return {'total_ms': total, 'gram_ms': gram, 'k2_ms': k2,
-            'rest_ms': total - gram - k2}
+    return {'total_ms': total, 'kernel_ms': sum(per), 'bucket_ms': per,
+            'rest_ms': total - sum(per)}
 
 
 def pcg_drift(M, b, x0, steps=(3, 6, 10, 20), sample=512):
@@ -1569,12 +1859,55 @@ def pcg_drift(M, b, x0, steps=(3, 6, 10, 20), sample=512):
                dist(xp, xl)))
 
 
+def device_busy_ms(prof):
+    '''The device's busy time in a torch.profiler run, in ms: the union of
+    its kernels' and copies' intervals, so that work overlapping on two
+    streams counts once (a sum of kernel times can exceed the wall
+    time).'''
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+    busy, end = 0.0, None
+    for a, b in iv:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def idle_share(busy_ms, epoch_ms):
+    '''The device's idle share of an epoch: 1 - busy / epoch, busy the
+    union of kernel intervals under torch.profiler and the epoch its
+    CUDA-event time without the profiler (the gaps the host leaves
+    between kernels count as idle; the profiler's own host cost does
+    not).  None where the profiler saw no device time.'''
+    return (1.0 - busy_ms / epoch_ms) if busy_ms > 0 else None
+
+
+def device_kernels(prof):
+    '''Per device kernel name in a torch.profiler run: (launches, ms),
+    longest first.'''
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, 'device_type', '')).endswith('CUDA'):
+            ms = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
+            n, t = out.get(e.key, (0, 0.0))
+            out[e.key] = (n + e.count, t + ms)
+    return dict(sorted(out.items(), key=lambda x: -x[1][1]))
+
+
 def warm_epoch_device(m, ubd, ibd):
     '''One warm CG epoch (``cg_epoch`` at 3 steps) of model ``m``'s
     factors over the device buckets: its CUDA-event time (median of 5),
-    its host-clock time, and the kernels' busy time in it by
-    ``torch.profiler`` (idle share = 1 - busy / host time; None where the
-    profiler reports no device time).'''
+    the host's time to enqueue it, its host-clock time and the device's
+    busy time in it by ``torch.profiler`` tracing the device alone (the
+    union of kernel intervals), the idle share (``idle_share``) and its
+    kernels by name.  Fails if the epoch gathers the buckets with
+    ``index_select``, runs a matrix product other than ``_hh``'s two F^T F
+    or launches K2's M-given entry.'''
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mfrec_tpu_torch.ops import als as als_ops
@@ -1590,37 +1923,58 @@ def warm_epoch_device(m, ubd, ibd):
 
     ev = timed_ms(epoch, 5)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    epoch()
+    enqueue = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         epoch()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
-    busy = 0.0
-    for e in prof.key_averages():
-        if str(getattr(e, 'device_type', '')).endswith('CUDA'):
-            busy += getattr(e, 'self_device_time_total',
-                            getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
-    return {'epoch_event_ms': ev, 'epoch_wall_ms': wall, 'busy_ms': busy,
-            'idle': (1.0 - busy / wall) if busy > 0 else None}
+    busy = device_busy_ms(prof)
+    kernels = device_kernels(prof)
+    for name, (n, ms) in kernels.items():
+        log('    %9.3f ms  %4d x  %s' % (ms, n, name[:110]))
+    low = {x.lower(): n for x, (n, _) in kernels.items()}
+    gathers = sum(n for x, n in low.items()
+                  if 'index_select' in x or 'indexselect' in x)
+    products = sum(n for x, n in low.items() if 'gemm' in x or 'bmm' in x)
+    pcg = sum(n for x, n in low.items() if 'pcg_kernel' in x)
+    if gathers or products > 2 or pcg:
+        raise SystemExit('the warm CG epoch runs %d index_select gathers, %d '
+                         'matrix-product kernels (2 expected: _hh) and %d '
+                         'standalone PCG launches' % (gathers, products, pcg))
+    return {'epoch_event_ms': ev, 'epoch_wall_ms': wall,
+            'epoch_enqueue_ms': enqueue, 'busy_ms': busy,
+            'idle': idle_share(busy, ev),
+            'idle_host_clock': idle_share(busy, wall),
+            'kernels': {x: list(v) for x, v in kernels.items()}}
 
 
 def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
            reduced=(3000, 700, 60_000)):
     '''The WRMF/ALS slice through the public path at bench_als's shape
     and settings: ``WRMFRecommender.train()`` (solver 'cg', 6 PCG steps,
-    3 after 2 epochs), a 1-epoch warm-up then 3 blocks of a 2- and a
-    5-epoch run (their difference: three pure warm epochs), K2's launch
-    count, the held-out P@5 gate through ``recommend_batch`` (K3)
-    against the popularity floor, the served lists against K3's plain
-    twin, K2 on a real bucket against its plain version and the exact
-    solver, the split of a half-sweep, and a CUDA model's CG epoch
-    against a CPU model's at a reduced shape.'''
+    3 after 2 epochs), a 1-epoch warm-up, three 0-epoch runs
+    (``train()``'s fixed set-up), 3 blocks of a 2- and a 102-epoch run
+    (their difference: a hundred pure warm epochs; the 2-epoch run less
+    two of them: the set-up again), a 5-epoch run whose model the gates
+    read, the fused K2's launch count (one per bucket, none of the M-given entry), the
+    held-out P@5 gate through ``recommend_batch`` (K3) against the
+    popularity floor, the served lists against K3's plain twin, the fused
+    K2 on the largest user bucket and the hottest item bucket against its
+    plain version (3 and 6 steps; timed beside the parent's composition
+    and the exact solver), K2's M-given entry on the user bucket's
+    systems, the split of each half-sweep, one warm epoch by CUDA events
+    with its kernels and the device's idle share, and a CUDA model's CG
+    epoch against a CPU model's at a reduced shape.'''
     import torch
     from mfrec_tpu_torch.data.movielens import ratings_from_arrays
     from mfrec_tpu_torch.models.wrmf import WRMFRecommender
     from mfrec_tpu_torch.ops import als as als_ops
-    from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
+    from mfrec_tpu_torch.ops.cg_kernel import cg_bucket_kernel, \
+        pcg_solve_kernel
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     card = card_line()
     on_card = device == 'cuda'
@@ -1634,7 +1988,7 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
     K = m.dimensionality
     log('phase 5: WRMFRecommender(%d, %d, rank %d, cg %d->%d after %d).'
         'train() on %s: %d training and %d held-out draws, nnz %d; user '
-        'buckets (L, R) %s, item buckets %s: %d K2 launches per epoch '
+        'buckets (L, R) %s, item buckets %s: %d fused K2 launches per epoch '
         '(%.1f s to build)' % (
             U, I, K, m.cg_steps, m.cg_warm_steps, m.cg_warmup_epochs, device,
             users.shape[0], test_u.shape[0], m.ratings.nnz,
@@ -1655,36 +2009,55 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
         return time.perf_counter() - t
 
     t_warm = train_timed(1)
-    # one real bucket's systems, from the warmed-up factors: the user
-    # bucket with the most rows
+    # two real buckets from the warmed-up factors: the user bucket with
+    # the most rows and the item bucket with the longest rows
     big = max(range(len(ub)), key=lambda j: ub[j][0].shape[0])
+    hot = max(range(len(ib)), key=lambda j: ib[j][1].shape[1])
     dev = m.device
     Pd = torch.from_numpy(m.P).to(dev)
     Qd = torch.from_numpy(m.Q).to(dev)
-    bucket = tuple(torch.from_numpy(x).to(dev) for x in ub[big])
-    HHreg = als_ops._hh(Qd, m.K)
-    M, b, x0 = als_ops.cg_system(Qd.to(torch.bfloat16), Pd, HHreg,
-                                 *bucket, 1.0, 0.0)
-    del HHreg
+    real = {}
+    for name, F, out, bk in (('user', Qd, Pd, ub[big]),
+                             ('item', Pd, Qd, ib[hot])):
+        bk = [torch.from_numpy(x).to(dev) for x in bk]
+        real[name] = dict(Fb=als_ops._fixed_bf16(F), out=out,
+                          HH=als_ops._hh(F, m.K), rows=bk[0], idx=bk[1],
+                          val=bk[2], mask=bk[3])
     pcg_solve_kernel.launches = 0          # from here on: the main path
+    cg_bucket_kernel.launches = 0
     topn_scores_kernel.launches = 0
-    marg = []
+    setup_0 = [train_timed(0) for _ in range(3)]
+    # a 2- and a 102-epoch run: at a few ms an epoch, fewer epochs leave
+    # the quotient inside the spread of train()'s fixed set-up (tens of
+    # ms); then the 5-epoch model the quality gate reads
+    marg, setup = [], []
     for _ in range(3):
         t2 = train_timed(2)
-        t5 = train_timed(5)
-        marg.append((t5 - t2) / 3.0)
-        log('  2 epochs %.3f s, 5 epochs %.3f s: epoch %.4f s  [%s]'
-            % (t2, t5, marg[-1], card))
-    k2_launches = pcg_solve_kernel.launches
+        t102 = train_timed(102)
+        marg.append((t102 - t2) / 100.0)
+        setup.append(t2 - 2 * marg[-1])
+        log('  2 epochs %.3f s, 102 epochs %.3f s: epoch %.5f s, set-up '
+            '%.3f s  [%s]' % (t2, t102, marg[-1], setup[-1], card))
+    t5 = train_timed(5)
+    k2_launches = cg_bucket_kernel.launches
+    pcg_launches = pcg_solve_kernel.launches
+    n_epochs = 3 * (2 + 102) + 5
     epoch_s = float(np.median(marg))
-    log('  warm-up 1 epoch %.2f s; epoch %.4f s (median of 3); K2 launches '
-        '%d over 21 epochs (%.1f per epoch)  [%s]'
-        % (t_warm, epoch_s, k2_launches, k2_launches / 21.0, card))
+    setup_s = float(np.median(setup))
+    log('  5 epochs %.3f s (the model the gate reads)  [%s]' % (t5, card))
+    log('  warm-up 1 epoch %.2f s; epoch %.5f s (median of 3); train()\'s '
+        'fixed set-up %.3f s (median of 3; a 0-epoch train() %s s); fused '
+        'K2 launches %d over %d epochs (%.1f per epoch), M-given K2 '
+        'launches %d  [%s]' % (
+            t_warm, epoch_s, setup_s, ', '.join('%.3f' % x for x in setup_0),
+            k2_launches, n_epochs, k2_launches / n_epochs, pcg_launches,
+            card))
     if not (np.isfinite(m.P).all() and np.isfinite(m.Q).all()):
         raise SystemExit('non-finite factors from the ALS training')
-    if on_card and k2_launches != 21 * per_epoch:
-        raise SystemExit('K2 launched %d times, expected %d'
-                         % (k2_launches, 21 * per_epoch))
+    if on_card and (k2_launches != n_epochs * per_epoch or pcg_launches):
+        raise SystemExit('the fused K2 launched %d times, expected %d; the '
+                         'M-given entry %d times, expected 0'
+                         % (k2_launches, n_epochs * per_epoch, pcg_launches))
     # the bench's quality gate, the model's lists through recommend_batch
     r_train = ratings_from_arrays(users, items, np.ones(users.shape[0],
                                                         np.float32), U, I)
@@ -1713,8 +2086,21 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
     k3_launches = topn_scores_kernel.launches
     if on_card and k3_launches == 0:
         raise SystemExit('retrieval from the trained WRMF never launched K3')
-    # K2 on the real bucket against its plain version and the exact solver
-    recs = [pcg_case('real bucket L=%d steps=%d' % (bucket[1].shape[1], s),
+    # the fused K2 on the two real buckets against its plain version,
+    # timed beside the parent's composition and the exact solver
+    frecs = []
+    for name in ('user', 'item'):
+        d = real[name]
+        for s in (6, 3):
+            frecs.append(cg_bucket_case(
+                '%s bucket R=%d L=%d steps=%d' % (
+                    name, d['idx'].shape[0], d['idx'].shape[1], s),
+                d, s, iters=10, plain_iters=3, yardsticks=name == 'user'))
+    # K2's M-given entry on the user bucket's systems (pcg_launch)
+    d = real['user']
+    M, b, x0 = als_ops.cg_system(d['Fb'], d['out'], d['HH'], d['rows'],
+                                 d['idx'], d['val'], d['mask'], 1.0, 0.0)
+    recs = [pcg_case('real bucket L=%d steps=%d' % (d['idx'].shape[1], s),
                      M, b, x0, s, iters=10, plain_iters=3, f64=True)
             for s in (6, 3)]
     pcg_drift(M, b, x0)
@@ -1722,30 +2108,50 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
         b[..., None], torch.linalg.cholesky(M)), 3)
     log('  exact solver (torch.linalg.cholesky + cholesky_solve) on the same '
         '%d systems: %.3f ms  [%s]' % (M.shape[0], exact_ms, card))
-    del M, b, x0
+    del M, b, x0, real, d
     split = {}
     if on_card:
+        sync()
+        t = time.perf_counter()
         ubd = als_ops.device_buckets(ub, dev)
         ibd = als_ops.device_buckets(ib, dev)
+        sync()
+        split['upload_s'] = time.perf_counter() - t
+        log('  the buckets\' upload, as train() makes it once a call: %.3f s '
+            '(%.1f MB)  [%s]' % (split['upload_s'], sum(
+                x.numel() * x.element_size() for bk in ubd + ibd
+                for x in bk) / 1e6, card))
         Pd = torch.from_numpy(m.P).to(dev)
         Qd = torch.from_numpy(m.Q).to(dev)
-        for side, args in (('user', (Qd, Pd, ubd)), ('item', (Pd, Qd, ibd))):
+        alive = [torch.from_numpy(als_ops._alive_mask(bk, n)).to(dev)
+                 for bk, n in ((ub, U), (ib, I))]
+        for side, args in (('user', (Qd, Pd, ubd, alive[0])),
+                           ('item', (Pd, Qd, ibd, alive[1]))):
             k2_split(*args, m.K, 3)              # warm the allocator
             split[side] = k2_split(*args, m.K, 3)
-            log('  %s half-sweep at 3 steps: %.3f ms on the card = gather + '
-                'Gram %.3f + K2 %.3f + rest %.3f  [%s]'
-                % (side, split[side]['total_ms'], split[side]['gram_ms'],
-                   split[side]['k2_ms'], split[side]['rest_ms'], card))
+            log('  %s half-sweep at 3 steps: %.3f ms on the card = fused K2 '
+                '%.3f (per bucket %s) + rest %.3f  [%s]'
+                % (side, split[side]['total_ms'], split[side]['kernel_ms'],
+                   ', '.join('%.3f' % x for x in split[side]['bucket_ms']),
+                   split[side]['rest_ms'], card))
         split['bound_ms_epoch'] = sum(
-            pcg_bound(int(x[0].shape[0]), K, 3)[0] for x in ub + ib)
+            cg_bucket_bound(x[1], x[3], K, 3, m.c_pos, m.alpha)[0]
+            for x in ubd + ibd)
+        log('  the fused K2\'s bound over the warm epoch\'s %d buckets: %.3f '
+            'ms' % (per_epoch, split['bound_ms_epoch']))
         split.update(warm_epoch_device(m, ubd, ibd))
         del ubd, ibd
         log('  one warm epoch (cg_epoch, 3 steps): %.3f ms by CUDA events '
-            '(median of 5), %.3f ms on the host clock; kernels busy %.3f ms '
-            'of it by torch.profiler: device idle %s  [%s]'
-            % (split['epoch_event_ms'], split['epoch_wall_ms'],
-               split['busy_ms'], 'not measured' if split['idle'] is None
-               else '%.1f %%' % (100 * split['idle']), card))
+            '(median of 5), %.3f ms to enqueue, %.3f ms on the host clock '
+            'under the profiler; device busy %.3f ms by torch.profiler (the '
+            'union of kernel intervals): device idle %s of the event time '
+            '(%s of the host clock)  [%s]'
+            % (split['epoch_event_ms'], split['epoch_enqueue_ms'],
+               split['epoch_wall_ms'], split['busy_ms'],
+               'not measured' if split['idle'] is None
+               else '%.1f %%' % (100 * split['idle']),
+               'not measured' if split['idle_host_clock'] is None
+               else '%.1f %%' % (100 * split['idle_host_clock']), card))
         # a CUDA model's CG epoch against a CPU model's, same factors
         ru, ri, rn = reduced
         su, si, _, _ = make_implicit_data(ru, ri, rn, seed=1)
@@ -1763,14 +2169,17 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
         if not rms < 1e-3:
             raise SystemExit('the CUDA model\'s CG epoch disagrees with the '
                              'CPU model\'s: rms %.3g' % rms)
-    bad = [r['case'] for r in recs if not r['ok']]
+    bad = [r['case'] for r in recs + frecs if not r['ok']]
     if bad:
         raise SystemExit('phase 5 (K2) failed: %s' % bad)
-    return dict(k2_launches=k2_launches, k3_launches=k3_launches,
-                epoch_s=epoch_s, epoch_s_blocks=marg, warmup_s=t_warm,
-                p5=p5, p5_copy=p5_copy, floor=floor,
-                floor_strict=floor_strict, recs=recs,
-                exact_ms=exact_ms, split=split, per_epoch=per_epoch)
+    return dict(k2_launches=k2_launches, pcg_launches=pcg_launches,
+                k3_launches=k3_launches, epoch_s=epoch_s,
+                epoch_s_blocks=marg, setup_s=setup_s,
+                setup_s_blocks=setup, setup_s_zero_epochs=setup_0,
+                n_epochs=n_epochs, warmup_s=t_warm, p5=p5,
+                p5_copy=p5_copy, floor=floor, floor_strict=floor_strict,
+                recs=recs, frecs=frecs, exact_ms=exact_ms, split=split,
+                per_epoch=per_epoch)
 
 
 def k4_launches():
@@ -1836,8 +2245,10 @@ def tier_split(epoch, state, args, device):
     epoch under torch.profiler for the kernels' busy time by kernel (K1
     ``half_pass_rows``/``half_pass_cluster_rows``, K4's
     ``window_index_kernel``/``window_sum_kernel``/``scan_agg_kernel``/
-    ``step_agg_kernel``, the rest) and the device idle share (1 - busy /
-    host time).'''
+    ``step_agg_kernel``, the rest) and the device idle share
+    (``idle_share``: busy the union of kernel intervals, as K1's cluster
+    kernel runs on a side stream beside its other blocks, over the epoch's
+    CUDA-event time).'''
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device != 'cuda':
@@ -1875,11 +2286,14 @@ def tier_split(epoch, state, args, device):
                        or 'half_pass_cluster_rows' in e.key) else 'k4' if \
             any(n in e.key for n in K4_KERNELS) else 'other'
         busy[key] += ms
-    total = sum(busy.values())
+    total = device_busy_ms(prof)
     return {'phases': phases,
             'epoch_event_ms': sum(p['device_ms'] for p in phases.values()),
             'epoch_wall_ms': wall, 'busy_ms': busy, 'busy_total_ms': total,
-            'idle': (1.0 - total / wall) if total > 0 else None}
+            'busy_sum_ms': sum(busy.values()),
+            'idle': idle_share(total, sum(p['device_ms']
+                                          for p in phases.values())),
+            'idle_host_clock': idle_share(total, wall)}
 
 
 def log_split(split, card):
@@ -1890,12 +2304,16 @@ def log_split(split, card):
             % (name, p['device_ms'], p['host_ms'], card))
     b = split['busy_ms']
     log('  one epoch: %.3f ms by CUDA events, %.3f ms on the host clock; '
-        'kernels busy %.3f ms (K1 %.3f, K4 %.3f, other %.3f) by '
-        'torch.profiler: device idle %s  [%s]'
+        'device busy %.3f ms (the union of kernel intervals; kernel time '
+        'K1 %.3f, K4 %.3f, other %.3f, sum %.3f) by torch.profiler: device '
+        'idle %s of the event time (%s of the host clock)  [%s]'
         % (split['epoch_event_ms'], split['epoch_wall_ms'],
            split['busy_total_ms'], b['k1'], b['k4'], b['other'],
+           split['busy_sum_ms'],
            'not measured' if split['idle'] is None
-           else '%.1f %%' % (100 * split['idle']), card))
+           else '%.1f %%' % (100 * split['idle']),
+           'not measured' if split['idle_host_clock'] is None
+           else '%.1f %%' % (100 * split['idle_host_clock']), card))
 
 
 def reduced_model(cls, params, device, reduced=REDUCED):
@@ -2500,30 +2918,69 @@ def k3_bound(B, I, k):
 
 
 def k2_entry(k2_recs, als):
-    '''K2's entry of the kernels line: times on phase 5's real bucket at
-    the warm step count (3), launches over phase 5's training.'''
+    '''K2's entries of the kernels line.  The fused bucket kernel (the
+    ALS path's): times on phase 5's largest user bucket at the warm step
+    count (3) beside its plain version, the parent's composition and the
+    exact solver, the hottest item bucket, the fused kernel's time over a
+    warm epoch's buckets, launches over phase 5's training.  The M-given
+    entry ``pcg_launch``: times on the user bucket's systems; it is on no
+    training path since the fused kernel (0 launches there).'''
     if not als:
         return []
     real = {r['steps']: r for r in als['recs']}
+    fused = {(r['case'].split()[0], r['steps']): r for r in als['frecs']}
+    user, item = fused[('user', 3)], fused[('item', 3)]
     split = als['split']
     return [{
-        'name': 'pcg (K2, warm-started Jacobi-PCG on batched k x k systems)',
+        'name': 'cg_bucket (K2 fused: an ALS bucket\'s gather, bf16 '
+                'tensor-core Gram, warm-started PCG and write-back)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/cg_bucket.cu',
+        'replaces': 'mfrec_tpu/ops/als.py:99-106 and '
+                    'mfrec_tpu/ops/pallas_cg.py:26',
+        'launches': als['k2_launches'],
+        'max_abs_err': max(r['max_abs_err']
+                           for r in k2_recs['bucket'] + als['frecs']),
+        'ms': user['ms'], 'plain_ms': user['plain_ms'],
+        'bound_ms': user['bound_ms'], 'bound_by': user['bound_by'],
+        'library_ms': None,
+        'shape': 'the largest user bucket of the ALS epoch: R=%d L=%d k=64 '
+                 'steps=3, %d entries' % (user['R'], user['L'], user['nnz']),
+        'composed_ms': user['composed_ms'],
+        'exact_solver_ms': user['exact_ms'],
+        'ms_steps6': fused[('user', 6)]['ms'],
+        'plain_ms_steps6': fused[('user', 6)]['plain_ms'],
+        'composed_ms_steps6': fused[('user', 6)]['composed_ms'],
+        'ms_hot_item_bucket': item['ms'],
+        'plain_ms_hot_item_bucket': item['plain_ms'],
+        'bound_ms_hot_item_bucket': item['bound_ms'],
+        'shape_hot_item_bucket': 'R=%d L=%d, longest row %d' % (
+            item['R'], item['L'], item['max_count']),
+        'gram_err_over_bound': max(r['gram_err_over_bound']
+                                   for r in k2_recs['bucket'] + als['frecs']),
+        'ms_per_epoch': split['user']['kernel_ms'] + split['item']['kernel_ms'],
+        'bound_ms_per_epoch': split['bound_ms_epoch'],
+        'launches_per_epoch': als['per_epoch'],
+        'epoch_event_ms': split['epoch_event_ms'],
+        'epoch_idle': split['idle'],
+        'epoch_s': als['epoch_s'],
+        'train_setup_s': als['setup_s'],
+        'train_upload_s': split['upload_s']}, {
+        'name': 'pcg (K2, warm-started Jacobi-PCG on batched k x k systems, '
+                'M given)',
         'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/pcg.cu',
         'replaces': 'mfrec_tpu/ops/pallas_cg.py:26',
-        'launches': als['k2_launches'],
-        'max_abs_err': max(r['max_abs_err'] for r in k2_recs + als['recs']),
+        'launches': als['pcg_launches'],
+        'max_abs_err': max(r['max_abs_err']
+                           for r in k2_recs['pcg'] + als['recs']),
         'ms': real[3]['ms'], 'plain_ms': real[3]['plain_ms'],
         'bound_ms': real[3]['bound_ms'], 'bound_by': real[3]['bound_by'],
         'library_ms': None,
-        'shape': 'the largest user bucket of the ALS epoch: R=%d k=64 '
-                 'steps=3' % real[3]['R'],
+        'shape': 'the largest user bucket\'s systems: R=%d k=64 steps=3; on '
+                 'no training path (the fused kernel runs the ALS epoch)'
+                 % real[3]['R'],
         'ms_steps6': real[6]['ms'], 'plain_ms_steps6': real[6]['plain_ms'],
         'bound_ms_steps6': real[6]['bound_ms'],
-        'exact_solver_ms': als['exact_ms'],
-        'ms_per_epoch_k2': split['user']['k2_ms'] + split['item']['k2_ms'],
-        'bound_ms_per_epoch': split['bound_ms_epoch'],
-        'launches_per_epoch': als['per_epoch'],
-        'epoch_s': als['epoch_s']}]
+        'exact_solver_ms': als['exact_ms']}]
 
 
 def k4_entry(k4, svdpp, fn):
@@ -2684,31 +3141,126 @@ def ab_k4(lay):
     return out
 
 
+def ab_als_data(path):
+    '''bench_als's data and buckets (69,878 x 10,677, 23M raw implicit
+    draws), built once by the process that starts the A/B and loaded by
+    each checkout's process from ``path`` (an .npz): (user buckets, item
+    buckets).'''
+    if os.path.exists(path):
+        z = np.load(path)
+        return tuple([tuple(z['%s%d_%d' % (a, j, t)] for t in range(4))
+                      for j in range(int(z['n_' + a]))]
+                     for a in ('user', 'item')) + (z['users'], z['items'])
+    from mfrec_tpu_torch.data.movielens import ratings_from_arrays
+    users, items, _, _ = make_implicit_data(ALS['U'], ALS['I'], ALS['N'],
+                                            seed=0)
+    r = ratings_from_arrays(users, items, np.ones(users.shape[0],
+                                                  np.float32),
+                            ALS['U'], ALS['I'])
+    bks = {a: r.padded_rows(axis=a) for a in ('user', 'item')}
+    arrays = {'n_' + a: len(bks[a]) for a in bks}
+    arrays.update(users=users, items=items)
+    arrays.update({'%s%d_%d' % (a, j, t): x for a in bks
+                   for j, bk in enumerate(bks[a]) for t, x in enumerate(bk)})
+    np.savez(path, **arrays)
+    return bks['user'], bks['item'], users, items
+
+
+def ab_als(ub, ib, users, items):
+    '''The CG path in this process's checkout, at bench_als's shape,
+    from factors N(0, 0.1) (seed 0) after one 6-step epoch: one warm
+    epoch (``cg_epoch``, 3 steps) and each half-sweep
+    (``als_half_sweep_cg``) by CUDA events (median of 5),
+    ``_bucket_cg_body`` on the largest user bucket and the hottest item
+    bucket at 3 steps (median of 10), and the public
+    ``WRMFRecommender.train()`` (phase 5's parameters) on the host clock
+    at 0 epochs (its fixed set-up), 3 (bench_als's ``epochs``) and 22,
+    the median of 3 each after one warm-up call.'''
+    import torch
+    from mfrec_tpu_torch.ops import als as als_ops
+    dev = torch.device('cuda')
+    U, I, K, reg = ALS['U'], ALS['I'], 64, 0.015
+    rng = np.random.default_rng(0)
+    P = torch.from_numpy(rng.normal(0, 0.1, (U, K)).astype(np.float32)).to(dev)
+    Q = torch.from_numpy(rng.normal(0, 0.1, (I, K)).astype(np.float32)).to(dev)
+    ubd = als_ops.device_buckets(ub, dev)
+    ibd = als_ops.device_buckets(ib, dev)
+    alive = [torch.from_numpy(als_ops._alive_mask(bk, n)).to(dev)
+             for bk, n in ((ub, U), (ib, I))]
+    P, Q = als_ops.cg_epoch(P, Q, alive[0], alive[1], ubd, ibd, 1.0, 0.0,
+                            reg, 6, 'pallas')
+    out = {'epoch_ms': timed_ms(lambda: als_ops.cg_epoch(
+        P, Q, alive[0], alive[1], ubd, ibd, 1.0, 0.0, reg, 3, 'pallas'), 5)}
+    out['user_half_sweep_ms'] = timed_ms(lambda: als_ops.als_half_sweep_cg(
+        Q, P, ubd, 1.0, 0.0, reg, 3), 5)
+    out['item_half_sweep_ms'] = timed_ms(lambda: als_ops.als_half_sweep_cg(
+        P, Q, ibd, 1.0, 0.0, reg, 3), 5)
+    big = max(range(len(ubd)), key=lambda j: ubd[j][0].shape[0])
+    hot = max(range(len(ibd)), key=lambda j: ibd[j][1].shape[1])
+    for name, F, upd, bk in (('user_bucket_ms', Q, P, ubd[big]),
+                             ('item_bucket_ms', P, Q, ibd[hot])):
+        HHreg, Fb, upd = als_ops._hh(F, reg), F.to(torch.bfloat16), upd.clone()
+        out[name] = timed_ms(lambda: als_ops._bucket_cg_body(
+            Fb, upd, HHreg, *bk, 1.0, 0.0, reg, 3, 'pallas'), 10)
+        out[name.replace('_ms', '_shape')] = list(bk[1].shape)
+    del ubd, ibd, P, Q
+    from mfrec_tpu_torch.models.wrmf import WRMFRecommender
+    m = WRMFRecommender(U, I, ALS_PARAMS, device='cuda')
+    m.set_ratings(users, items, np.ones(users.shape[0], np.float32))
+
+    def train_s(epochs):
+        m.nbr_epochs = epochs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.train()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    train_s(1)
+    for n in (0, 3, 22):
+        out['train_s_%d_epochs' % n] = float(np.median(
+            [train_s(n) for _ in range(3)]))
+    return out
+
+
+AB_MODES = ('k1', 'k4', 'k1-rows', 'als')
+
+
 def ab_main(mode, checkouts, child):
     '''``--ab``: each checkout measured in a process of its own (its own
     ``mfrec_tpu_torch`` and kernel builds, this script's measurement), in
     the order given; one ``AB <mode> {...}`` JSON line per checkout.'''
-    cache = os.path.join(REPO, 'mfrec_tpu_torch', '_build', 'ab_layouts.npz')
+    als = mode == 'als'
+    cache = os.path.join(REPO, 'mfrec_tpu_torch', '_build',
+                         'ab_als.npz' if als else 'ab_layouts.npz')
     if child:
         checkout = os.path.abspath(checkouts[0])
         os.chdir(checkout)
         sys.path.insert(0, checkout)
         from mfrec_tpu_torch.ops import _cuda_build
         from mfrec_tpu_torch.ops import half_pass_kernel as hk
-        _cuda_build.build(tuple(getattr(hk, 'LIBRARIES',
-                                        {0: 'half_pass'}).values())
-                          + ('window_agg',))
-        lay, hot = ab_layouts(cache)
-        out = {'k1': lambda: ab_k1(lay, hot),
-               'k1-rows': lambda: ab_k1_rows(lay, hot),
-               'k4': lambda: ab_k4(lay)}[mode]()
+        if als:
+            _cuda_build.build([x for x in ('pcg', 'cg_bucket') if os.path.exists(
+                os.path.join(checkout, 'mfrec_tpu_torch', 'csrc', x + '.cu'))])
+            out = ab_als(*ab_als_data(cache))
+        else:
+            _cuda_build.build(tuple(getattr(hk, 'LIBRARIES',
+                                            {0: 'half_pass'}).values())
+                              + ('window_agg',))
+            lay, hot = ab_layouts(cache)
+            out = {'k1': lambda: ab_k1(lay, hot),
+                   'k1-rows': lambda: ab_k1_rows(lay, hot),
+                   'k4': lambda: ab_k4(lay)}[mode]()
         out.update(checkout=checkout, card=card_line())
         print('AB %s %s' % (mode, json.dumps(out)), flush=True)
         return 0
     os.makedirs(os.path.dirname(cache), exist_ok=True)
     if os.path.exists(cache):
         os.remove(cache)
-    ab_layouts(cache)
+    if als:
+        ab_als_data(cache)
+    else:
+        ab_layouts(cache)
     rc = 0
     try:
         for d in checkouts:
@@ -2723,9 +3275,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
     ap.add_argument('--phases', default='12345678',
                     help='which phases to run (default: all)')
-    ap.add_argument('--ab', choices=('k1', 'k4', 'k1-rows'),
-                    help='instead of the phases, time K1 or K4 in each '
-                         'checkout given, in the order given')
+    ap.add_argument('--ab', choices=AB_MODES,
+                    help='instead of the phases, time K1, K4 or the ALS CG '
+                         'path in each checkout given, in the order given')
     ap.add_argument('--ab-child', action='store_true', help=argparse.SUPPRESS)
     ap.add_argument('checkouts', nargs='*', help='checkouts for --ab')
     args = ap.parse_args(argv)
@@ -2745,7 +3297,8 @@ def main(argv=None):
     if '1' in args.phases:
         phase1()
     k3_recs, (k1_recs, k1_time), k2_recs, k4 = phase2() \
-        if '2' in args.phases else ([], ([], {}), [], {})
+        if '2' in args.phases else ([], ([], {}), {'pcg': [], 'bucket': []},
+                                    {})
     launches, worst = phase3() if '3' in args.phases else (None, 0.0)
     train = phase4() if '4' in args.phases else {}
     als = phase5() if '5' in args.phases else {}

@@ -4,9 +4,10 @@ WRMFRecommender -- implicit-feedback weighted ALS.
 Port of ``mfrec_tpu/models/wrmf.py``: the constructor with the reference
 parameter names and defaults (``PARAMETERS_INDEX``), the predictors and
 ``train()`` for both solvers on the model's device through
-``ops.als.als_wrmf_train``.  With ``solver='cg'`` a CUDA model's PCG
-iterations run in the hand-written K2 kernel (``csrc/pcg.cu``), a CPU
-model's in the plain loop (the JAX model's XLA loop on the CPU).  The
+``ops.als.als_wrmf_train``.  With ``solver='cg'`` each nnz bucket of a
+CUDA model runs in one launch of the hand-written fused K2 kernel
+(``csrc/cg_bucket.cu``: gather, Gram, PCG and write-back), a CPU model's
+in the plain loop (the JAX model's XLA loop on the CPU).  The
 factors come back as numpy, so retrieval (K3 on a GPU) and serving work
 on a model the port trained.
 
@@ -69,17 +70,18 @@ class WRMFRecommender(MFRecommender):
         # 'bfloat16': the exact solver's rank-L Gram corrections take bf16
         # inputs with f32 sums (the solves stay f32); None keeps all f32.
         self.gram_dtype = None
-        # solver='cg': warm-started PCG half-sweeps (bf16 gather, K2 on a
-        # GPU); 'exact': batched Cholesky (oracle parity).
+        # solver='cg': warm-started PCG half-sweeps (bf16 gather, the fused
+        # K2 on a GPU); 'exact': batched Cholesky (oracle parity).
         self.solver = 'exact'
         self.cg_steps = 6
         # After cg_warmup_epochs, cg_warm_steps PCG iterations per solve
         # (None = no drop).
         self.cg_warm_steps = None
         self.cg_warmup_epochs = 2
-        # pcg_impl: 'auto' runs K2 on a CUDA model and the plain loop on a
-        # CPU model; on a CUDA model every value runs K2, on a CPU model
-        # 'pallas' runs K2's plain version and 'xla' the plain loop.
+        # pcg_impl: 'auto' runs the fused K2 on a CUDA model and the plain
+        # loop on a CPU model; on a CUDA model every value runs the fused
+        # K2, on a CPU model 'pallas' runs K2's plain version and 'xla' the
+        # plain loop.
         self.pcg_impl = 'auto'
         # engine: 'auto' and 'als' run the single-device bucket sweeps;
         # 'als_sharded' is not ported yet.

@@ -7,8 +7,9 @@ bucket of ``Ratings.padded_rows`` the rank-L corrections and the solve:
 batched Cholesky (``solver='exact'``, ``_bucket_solve``) or warm-started
 Jacobi-PCG (``solver='cg'``, ``_bucket_cg_body``).  The CG path gathers
 the fixed side in bf16 and assembles ``M`` and ``b`` with f32 sums of
-exact products; its iterations run in K2 (``ops.cg_kernel``) on a CUDA
-model.
+exact products; on a CUDA model the gather, the assembly, the iterations
+and the write-back of one bucket are one launch of the fused K2
+(``ops.cg_kernel.cg_bucket_kernel``).
 
 Model (Hu/Koren/Volinsky ICDM'08, as the reference implements it):
 confidence ``c_ui = 1 + c_pos`` for observed pairs and 1 otherwise (or
@@ -32,7 +33,8 @@ import contextlib
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.ops.cg_kernel import pcg_solve_kernel
+from mfrec_tpu_torch.ops.cg_kernel import cg_bucket_kernel, padded_k, \
+    pcg_solve_ref
 
 
 @contextlib.contextmanager
@@ -133,13 +135,15 @@ def pcg_solve(M, b, x0, steps):
 def cg_system(F, out, HHreg, rows, nbr_idx, nbr_val, mask, c_pos, alpha):
     '''One bucket's CG systems: ``(M [R, k, k], b [R, k], x0 [R, k])``.
 
-    ``F`` may be pre-cast to bf16 (one cast per half-sweep).  The
-    gather is unmasked (a padded slot reads row 0); the mask enters
-    through ``cm1`` and ``(1 + cm1) * mask``.  ``M = HHreg +
+    ``F`` may be pre-cast to bf16 (one cast per half-sweep) and have
+    more columns than ``out`` (``_fixed_bf16``'s padding): the first k
+    are read.  The gather is unmasked (a padded slot reads row 0); the
+    mask enters through ``cm1`` and ``(1 + cm1) * mask``.  ``M = HHreg +
     Awb^T Ab`` with ``Ab = bf16(F[nbr_idx])`` and ``Awb = Ab *
     bf16(cm1)`` (a bf16 product), summed in f32 from the widened bf16
     operands; ``b = sum_l (1 + cm1) mask * Ab``, in f32.'''
-    Ab = _gather(F, nbr_idx).to(torch.bfloat16)            # [R, L, k]
+    k = out.shape[1]
+    Ab = _gather(F[:, :k], nbr_idx).to(torch.bfloat16)      # [R, L, k]
     cm1 = _confidence_m1(nbr_val, mask, c_pos, alpha)       # [R, L]
     Awb = Ab * cm1[..., None].to(torch.bfloat16)
     Af = Ab.float()
@@ -153,23 +157,39 @@ def cg_system(F, out, HHreg, rows, nbr_idx, nbr_val, mask, c_pos, alpha):
 
 def _bucket_cg_body(F, out, HHreg, rows, nbr_idx, nbr_val, mask, c_pos,
                     alpha, reg, steps, pcg_impl='xla'):
-    '''Gram assembly (``cg_system``) and ``steps`` PCG iterations for one
-    nnz bucket, warm-started from the rows' current values; writes the
-    rows into ``out`` (in place; also returned).
+    '''Gram assembly and ``steps`` PCG iterations for one nnz bucket,
+    warm-started from the rows' current values; writes the rows into
+    ``out`` (in place; also returned).
 
-    The solve: on CUDA tensors always K2 (``pcg_solve_kernel``),
-    whatever ``pcg_impl``; on CPU tensors ``pcg_impl='pallas'`` runs K2's
-    plain version (the Pallas kernel's numerics) and any other value the
-    plain loop ``pcg_solve`` (the XLA loop's).'''
+    On CUDA tensors always the fused K2 (``cg_bucket_kernel``: gather,
+    Gram, PCG and write-back in one launch), whatever ``pcg_impl``; ``F``
+    is then the fixed side as ``_fixed_bf16`` makes it.  On CPU tensors
+    ``cg_system`` and then ``pcg_impl='pallas'`` runs K2's plain version
+    (the Pallas kernel's numerics) and any other value the plain loop
+    ``pcg_solve`` (the XLA loop's).'''
+    if out.is_cuda:
+        return cg_bucket_kernel(F, out, HHreg, rows, nbr_idx, nbr_val, mask,
+                                c_pos, alpha, steps)
     M, b, x0 = cg_system(F, out, HHreg, rows, nbr_idx, nbr_val, mask,
                          c_pos, alpha)
-    if pcg_impl == 'pallas' or M.is_cuda:
-        x = pcg_solve_kernel(M, b, x0, steps)
+    if pcg_impl == 'pallas':
+        x = pcg_solve_ref(M, b, x0, steps)
     else:
         x = pcg_solve(M, b, x0, steps)
     del M, b
     out[rows.long()] = x.to(out.dtype)
     return out
+
+
+def _fixed_bf16(F):
+    '''The fixed side in bf16, cast once per half-sweep, padded with zero
+    columns to a multiple of 8 (whole 16-byte rows for the fused K2's
+    gathers; ``cg_system`` reads the first k).'''
+    k = F.shape[1]
+    Fb = F.to(torch.bfloat16)
+    if k % 8:
+        Fb = torch.nn.functional.pad(Fb, (0, padded_k(k) - k))
+    return Fb
 
 
 def _hh(F, reg=None):
@@ -190,14 +210,14 @@ def cg_epoch(P, Q, u_alive, i_alive, user_buckets, item_buckets, c_pos,
     (P, Q).'''
     P, Q = P.clone(), Q.clone()
     HHreg = _hh(Q, reg)
-    Qb = Q.to(torch.bfloat16)          # one cast per half-sweep
+    Qb = _fixed_bf16(Q)                # one cast per half-sweep
     for rows, nidx, nval, mask in user_buckets:
         _bucket_cg_body(Qb, P, HHreg, rows, nidx, nval, mask, c_pos, alpha,
                         reg, steps, pcg_impl)
     del Qb
     P.mul_(u_alive)
     HHreg = _hh(P, reg)
-    Pb = P.to(torch.bfloat16)
+    Pb = _fixed_bf16(P)
     for rows, nidx, nval, mask in item_buckets:
         _bucket_cg_body(Pb, Q, HHreg, rows, nidx, nval, mask, c_pos, alpha,
                         reg, steps, pcg_impl)
@@ -216,13 +236,13 @@ def device_buckets(buckets, device):
 
 def als_half_sweep_cg(F_fixed, F_update, buckets, c_pos=1.0, alpha=0.0,
                       reg=0.015, cg_steps=6):
-    '''One half-sweep by warm-started PCG (K2 on CUDA tensors, the plain
-    loop on CPU tensors); same buckets contract as ``als_half_sweep``.
-    Returns the new ``F_update``.'''
+    '''One half-sweep by warm-started PCG (the fused K2 on CUDA tensors,
+    the plain loop on CPU tensors); same buckets contract as
+    ``als_half_sweep``.  Returns the new ``F_update``.'''
     dev = F_update.device
     F_update = F_update.clone()
     HHreg = _hh(F_fixed, reg)
-    Fb = F_fixed.to(torch.bfloat16)
+    Fb = _fixed_bf16(F_fixed)
     for bucket in device_buckets(buckets, dev):
         _bucket_cg_body(Fb, F_update, HHreg, *bucket, c_pos, alpha, reg,
                         int(cg_steps))
@@ -275,10 +295,11 @@ def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
     (None or ``torch.bfloat16``) selects the rank-L corrections' input
     type.
 
-    ``pcg_impl``: 'auto' (default) runs K2 on a CUDA model and the plain
-    loop ``pcg_solve`` on a CPU model.  On a CUDA model every value runs
-    K2 -- the rule ``use_pallas`` follows for retrieval; on a CPU model
-    'pallas' runs K2's plain version and 'xla' the plain loop.
+    ``pcg_impl``: 'auto' (default) runs the fused K2 on a CUDA model and
+    the plain loop ``pcg_solve`` on a CPU model.  On a CUDA model every
+    value runs the fused K2 -- the rule ``use_pallas`` follows for
+    retrieval; on a CPU model 'pallas' runs K2's plain version and 'xla'
+    the plain loop.
     '''
     dev = P.device
     if pcg_impl in (None, 'auto'):

@@ -13,9 +13,11 @@ the bf16 tolerances of tests/test_pallas_half_pass.py (window atol
 bf16 at the same places, but an f32 ulp from FMA contraction or
 summation order can flip one bf16 rounding of the window read.  K2:
 atol 1e-4, rtol 1e-3 (tests/test_als.py:303, f32 sums in another
-order).  K4: counts exactly, sums atol 1e-5 + rtol 1e-5 (the same bf16
-rows summed in f32 in another order); K4's item step: atol 1e-5 plus 1 %
-of the largest change (STEP_UPD_TOL, below).  The SVD++ and FN epochs of
+order); the fused K2's M and b against a float64 Gram within
+``chip_smoke.gram_within``'s bound, x within K2's.  K4: counts exactly,
+sums atol 1e-5 + rtol 1e-5 (the same bf16 rows summed in f32 in another
+order); K4's item step: atol 1e-5 plus 1 % of the largest change
+(STEP_UPD_TOL, below).  The SVD++ and FN epochs of
 a CUDA model against a CPU model's, P1 and P2 and the A/B tool's 'old'
 epoch: K1's tolerances.'''
 import numpy as np
@@ -278,6 +280,82 @@ def test_pcg_kernel_guards_and_asymmetric(cuda, kind, k):
         assert torch.equal(got, x0)
 
 
+# the fused K2 (gather, tensor-core Gram, PCG, write-back in one launch):
+# M and b against a float64 Gram of the same bf16 operands within
+# chip_smoke.gram_within's bound, (ceil(count / 32) + 72) 2^-24 of the
+# absolute sum of the terms (plus 2^-24 |HHreg|; b: + 36): the tensor
+# cores' truncating accumulation over a chunk of 32 exact products, then
+# one IEEE add per chunk.  x against the plain version within K2_TOL, or as close
+# to the float64 iteration as the plain version within a factor of 2
+# (chip_smoke.cg_bucket_case: f32 PCG trajectories drift apart mid-solve).
+@pytest.mark.parametrize('alpha', [0.0, 2.0])
+@pytest.mark.parametrize('steps', [0, 3, 6])
+@pytest.mark.parametrize('L', [8, 64, 1024, 16384])
+@pytest.mark.parametrize('k', [8, 20, 64, 130, 256])
+def test_cg_bucket_kernel_matches_plain(cuda, k, L, steps, alpha):
+    '''R=37 rows of random counts (R=3 with one full row at L=16,384, the
+    hot item's regime); k=8 and 20 pad the tiles with zero columns, k=20
+    and 130 the fixed side's rows to 16 bytes, k=256 streams M.'''
+    import chip_smoke
+    d = chip_smoke.cg_bucket_data(3 if L >= 16384 else 37, L, k,
+                                  seed=k + L + steps, device='cuda',
+                                  hot=L >= 16384)
+    rec = chip_smoke.cg_bucket_case('k=%d L=%d' % (k, L), d, steps,
+                                    c_pos=1.7, alpha=alpha)
+    assert rec['launches'] == 1
+    assert rec['untouched']
+    assert rec['gram_ok'], rec
+    assert rec['ok'], rec
+
+
+@pytest.mark.parametrize('kind', ['holes', 'empty_row', 'two_a_block',
+                                  'odd_L'])
+@pytest.mark.parametrize('k', [20, 64, 130])
+def test_cg_bucket_kernel_masks_and_blocks(cuda, kind, k):
+    '''Masks with holes inside a row's count (the count is found from the
+    mask, not assumed a prefix), a row with no entry (M = HHreg, b = 0),
+    R=4,099 rows (two systems a block), and L=37 (rows of ids, values and
+    mask that are no whole 16-byte copies: 4-byte copies).'''
+    import chip_smoke
+    R = 4099 if kind == 'two_a_block' else 37
+    d = chip_smoke.cg_bucket_data(R, 37 if kind == 'odd_L' else 256, k,
+                                  seed=k, device='cuda',
+                                  holes=kind == 'holes',
+                                  empty_row=kind == 'empty_row')
+    rec = chip_smoke.cg_bucket_case(kind, d, 3, c_pos=1.7, alpha=2.0)
+    assert rec['ok'], rec
+
+
+def test_cg_bucket_kernel_guards(cuda):
+    '''R=0 launches nothing; what the kernel does not take raises (the
+    fixed side too narrow or off a 16-byte boundary included); a second
+    launch on the same inputs gives the same bits.'''
+    import chip_smoke
+    from mfrec_tpu_torch.ops import cg_kernel
+    d = chip_smoke.cg_bucket_data(37, 64, 64, seed=1, device='cuda')
+    args = (d['HH'], d['rows'], d['idx'], d['val'], d['mask'], 1.0, 2.0, 3)
+    a = cg_kernel.cg_bucket_kernel(d['Fb'], d['out'].clone(), *args)
+    b = cg_kernel.cg_bucket_kernel(d['Fb'], d['out'].clone(), *args)
+    assert torch.equal(a, b)
+    before = cg_kernel.cg_bucket_kernel.launches
+    e = chip_smoke.cg_bucket_data(0, 8, 64, seed=0, device='cuda')
+    cg_kernel.cg_bucket_kernel(e['Fb'], e['out'], e['HH'], e['rows'],
+                               e['idx'], e['val'], e['mask'], 1.0, 0.0, 3)
+    assert cg_kernel.cg_bucket_kernel.launches == before
+    buf = torch.zeros(d['Fb'].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    bad = [dict(Fb=d['Fb'].float()), dict(rows=d['rows'].long()),
+           dict(mask=d['mask'][:, :32]), dict(out=d['out'].t()),
+           dict(HH=d['HH'].cpu()), dict(Fb=d['Fb'][:, :56].contiguous()),
+           dict(Fb=buf[1:].view(d['Fb'].shape))]
+    for over in bad:
+        kw = dict(d, **over)
+        with pytest.raises(ValueError):
+            cg_kernel.cg_bucket_kernel(kw['Fb'], kw['out'], kw['HH'],
+                                       kw['rows'], kw['idx'], kw['val'],
+                                       kw['mask'], 1.0, 0.0, 3)
+
+
 def test_als_products_are_full_f32(cuda):
     '''With TF32 switched on process-wide, the ALS path's f32 products
     (the Gram HHreg, the bucket Gram, the plain loop's mat-vec) still
@@ -306,8 +384,8 @@ def test_als_products_are_full_f32(cuda):
 
 
 def test_cuda_wrmf_trains_through_k2(cuda):
-    '''solver='cg' on CUDA: every bucket's solve is one K2 launch, and the
-    model lands where the same model on the CPU (the plain loop) does;
+    '''solver='cg' on CUDA: every bucket is one launch of the fused K2 (and
+    none of the M-given entry), and the model lands where the same model on the CPU (the plain loop) does;
     the exact solver on CUDA against the CPU too.'''
     import chip_smoke
     from mfrec_tpu_torch.models.wrmf import WRMFRecommender
@@ -325,13 +403,15 @@ def test_cuda_wrmf_trains_through_k2(cuda):
                                 device=dev)
             m.seed(1)
             m.set_ratings(u, i, ones)
-            before = cg_kernel.pcg_solve_kernel.launches
+            before = cg_kernel.cg_bucket_kernel.launches
+            before_pcg = cg_kernel.pcg_solve_kernel.launches
             m.train()
             n = len(m.ratings.padded_rows(axis='user')) + \
                 len(m.ratings.padded_rows(axis='item'))
             want = n * params['nbr_epochs'] \
                 if dev == 'cuda' and params['solver'] == 'cg' else 0
-            assert cg_kernel.pcg_solve_kernel.launches == before + want
+            assert cg_kernel.cg_bucket_kernel.launches == before + want
+            assert cg_kernel.pcg_solve_kernel.launches == before_pcg
             out[dev] = m.P @ m.Q.T
         rms = float(np.sqrt(((out['cuda'] - out['cpu']) ** 2).mean()))
         assert rms < 1e-3, (params['solver'], rms)
