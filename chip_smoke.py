@@ -11,13 +11,18 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
     python3 chip_smoke.py --ab als A B B A  # the ALS CG path, the same way
+    python3 chip_smoke.py --ab k3 A B B A   # K3, bench and serving shapes
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
          per source, K1's four builds included, started together), with
          ``-Xptxas -v``'s report.
 Phase 2  each kernel against its plain PyTorch version on the card:
-         K3 at the serving and retrieval-bench shapes plus edge shapes;
+         K3 at the serving and retrieval-bench shapes (CUDA events,
+         device time, the wrapper's host time and the composed library
+         yardstick) plus edge shapes (B off the user tile, I under a
+         tile and one past a split, ties, rated ids on tile bounds, a
+         user who rated all but n - 1 items, n and k around the limits);
          K1 on real batches of the ML-10M-shape layouts (B=16384, W=128,
          k=66) in each path's build (SGD bf16 T=128, SVD++ and FN f32),
          the most-rated item's whole chain (a cluster row), edge cases
@@ -85,6 +90,9 @@ Phase 8  the probe tools: P1 and P2 against their plain versions on the
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
+K3 (the bench shape exact and fast, with and without 64 rated ids, and
+the serving batch: CUDA events, device time per kernel, the wrapper's
+host time, the composed yardstick, the grid's split rule swept),
 K4's per-call sum (CUDA events and device time beside ``index_add_``) or
 the ALS CG path (a warm epoch, each half-sweep, the largest user and
 hottest item buckets, by CUDA events; the public ``train()`` at 0, 3
@@ -103,6 +111,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +123,7 @@ EXACT_ATOL = 1e-4          # f32 sums in another order than the twin
 EXACT_TIE = 1e-5           # twin scores this close may swap places
 FAST_RTOL = 2.0 ** -10     # one quantization step of the packed mode
 FAST_ATOL = 1e-5
+NEG_SCORE = -3.0e38         # K3's score of a rated item
 # K1 against its plain version: the bf16 tolerances of
 # tests/test_pallas_half_pass.py.  Both round the window read and eff*ff
 # to bf16 at the same places; FMA contraction and summation order can
@@ -125,6 +135,7 @@ K1_SSE_RTOL = 1e-3         # the t=0 residuals summed in another order
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
+PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 ML10M = dict(U=69_878, I=10_677, nnz=10_000_000)
 # K2 against its plain version: the tolerance of tests/test_als.py:303
@@ -254,12 +265,16 @@ def _rated(rng, B, I, L):
     return idx, np.full(B, L, np.int32)
 
 
-def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
-                seed=0, iters=0):
-    '''One kernel-vs-twin check on the card; returns its record.'''
+def k3_inputs(B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
+              seed=0, edge=None):
+    '''Seeded K3 inputs on the card: ``{'args': (P, Q, bu, bi, mu, n),
+    'kw': {rated_idx, rated_cnt, bf16_dot, packed}}``.  ``edge``: 'ties'
+    (every other Q row and item bias a copy of the one before, so scores
+    tie exactly and order by id), 'bounds' (each user's rated ids include
+    the first and last item of every item tile, hence of every split,
+    and those items score best unmasked), 'all_but' (user 0 rated all
+    but n - 1 items, so NEG fills the tail of its list).'''
     import torch
-    from mfrec_tpu_torch.ops.topn_kernel import (topn_scores_kernel,
-                                                 topn_scores_ref)
     dev = torch.device('cuda')
     rng = np.random.default_rng(seed)
     P = rng.normal(0, 0.3, (B, k)).astype(np.float32)
@@ -273,34 +288,123 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
         mu = 1.0 if mode == 'dot_plus_one' else 0.0
     elif mode == 'logistic':
         mu = 0.0
+    if edge == 'ties':
+        Q[1::2], bi[1::2] = Q[0:I - 1:2], bi[0:I - 1:2]
+    ri = rc = None
+    if L:
+        ri, rc = _rated(rng, B, I, L)
+    if edge == 'bounds':
+        from mfrec_tpu_torch.ops.topn_kernel import ITEM_TILE
+        starts = np.arange(0, I, ITEM_TILE)
+        marks = np.unique(np.concatenate(
+            [starts, np.minimum(starts + ITEM_TILE, I) - 1])).astype(np.int32)
+        ri = np.tile(marks, (B, 1))
+        rc = np.full(B, marks.size, np.int32)
+        bi[marks] += 50.0      # the marks would lead every list unmasked
+    elif edge == 'all_but':
+        keep = rng.choice(I, n - 1, replace=False)
+        rest = np.setdiff1d(np.arange(I, dtype=np.int32), keep)
+        ri = np.zeros((B, rest.size), np.int32)
+        ri[0] = rest
+        for b in range(1, B):
+            ri[b, :L] = np.sort(rng.choice(I, L, replace=False))
+        rc = np.full(B, L, np.int32)
+        rc[0] = rest.size
     t = {x: torch.from_numpy(v).to(dev) for x, v in
          (('P', P), ('Q', Q), ('bu', bu), ('bi', bi))}
     Qd = t['Q'].to(torch.bfloat16) if q_bf16 else t['Q']
-    ridx = rcnt = None
-    if L:
-        ri, rc = _rated(rng, B, I, L)
-        ridx, rcnt = torch.from_numpy(ri).to(dev), torch.from_numpy(rc).to(dev)
-    kw = dict(rated_idx=ridx, rated_cnt=rcnt, bf16_dot=fast, packed=fast)
+    kw = dict(rated_idx=None, rated_cnt=None, bf16_dot=fast, packed=fast)
+    if ri is not None:
+        kw.update(rated_idx=torch.from_numpy(ri).to(dev),
+                  rated_cnt=torch.from_numpy(rc).to(dev))
+    return {'args': (t['P'], Qd, t['bu'], t['bi'], mu, n), 'kw': kw}
+
+
+def k3_composed(args, kw):
+    '''The composed library yardstick for K3 (timed, never called by the
+    port): ``torch.matmul`` (TF32 off; bf16 operands in the fast mode,
+    f32 out where ``torch.mm`` takes ``out_dtype``), the bias adds, NEG at
+    the rated ids by one ``index_fill_``, ``torch.topk``.'''
+    import torch
+    P, Q, bu, bi, mu, n = args
+    fast = kw['bf16_dot']
+    if fast:
+        P, Q = P.to(torch.bfloat16), Q.to(torch.bfloat16)
+    else:
+        Q = Q.float()
+    QT = Q.T
+    flat = None
+    if kw['rated_idx'] is not None:
+        ri, rc = kw['rated_idx'], kw['rated_cnt']
+        L = ri.shape[1]
+        valid = torch.arange(L, device=ri.device)[None, :] < rc[:, None]
+        rows = torch.arange(ri.shape[0], device=ri.device)[:, None]
+        flat = (rows * Q.shape[0] + ri.long())[valid]
+    mm = torch.mm
+    if fast:
+        try:
+            torch.mm(P[:1], QT[:, :8], out_dtype=torch.float32)
+            mm = functools.partial(torch.mm, out_dtype=torch.float32)
+        except (TypeError, RuntimeError, NotImplementedError):
+            pass        # bf16 out, then .float()
+    f32_out = mm is not torch.mm or not fast
+
+    def call():
+        s = mm(P, QT).float()
+        s = ((s + mu) + bu[:, None]) + bi[None, :]
+        if flat is not None:
+            s.view(-1).index_fill_(0, flat, NEG_SCORE)
+        return torch.topk(s, n, dim=1)
+    call.f32_out = f32_out
+    return call
+
+
+def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
+                seed=0, iters=0, edge=None, composed=False, min_tiles=None):
+    '''One kernel-vs-twin check on the card; returns its record.  With
+    ``iters``: CUDA-event and device times of the kernel and its plain
+    version, and with ``composed`` the composed library yardstick's.
+    ``min_tiles``: the plan's least tiles a split for this case.'''
+    import torch
+    from mfrec_tpu_torch.ops import topn_kernel as tk
+    from mfrec_tpu_torch.ops.topn_kernel import (topn_scores_kernel,
+                                                 topn_scores_ref)
+    t = k3_inputs(B, I, k, n, L, fast, q_bf16, mode, seed, edge)
+    args, kw = t['args'], t['kw']
     torch.backends.cuda.matmul.allow_tf32 = False
-    k_idx, k_s = topn_scores_kernel(t['P'], Qd, t['bu'], t['bi'], mu, n, **kw)
-    torch.cuda.synchronize()
-    t_idx, t_s = topn_scores_ref(t['P'], Qd, t['bu'], t['bi'], mu,
-                                 min(n + 1, I), **kw)
+    default = tk.MIN_TILES_PER_SPLIT
+    tk.MIN_TILES_PER_SPLIT = min_tiles or default
+    try:
+        k_idx, k_s = topn_scores_kernel(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        tk.MIN_TILES_PER_SPLIT = default
+    t_idx, t_s = topn_scores_ref(*args[:5], min(n + 1, I), **kw)
     ok, err, swaps = compare(k_idx.cpu(), k_s.cpu(), t_idx.cpu(), t_s.cpu(),
                              n, fast)
     rec = {'case': name, 'B': B, 'I': I, 'k': k, 'n': n, 'L': L,
-           'fast': fast, 'mode': mode, 'ok': ok, 'max_abs_err': err,
-           'swaps': swaps}
+           'fast': fast, 'mode': mode, 'edge': edge, 'ok': ok,
+           'max_abs_err': err, 'swaps': swaps}
     if iters:
-        rec['ms'] = timed_ms(lambda: topn_scores_kernel(
-            t['P'], Qd, t['bu'], t['bi'], mu, n, **kw), iters)
-        rec['plain_ms'] = timed_ms(lambda: topn_scores_ref(
-            t['P'], Qd, t['bu'], t['bi'], mu, n, **kw), iters)
+        kern = functools.partial(topn_scores_kernel, *args, **kw)
+        rec['ms'] = timed_ms(kern, iters)
+        rec['device_ms'] = device_ms(kern)
+        rec['plain_ms'] = timed_ms(functools.partial(
+            topn_scores_ref, *args, **kw), iters)
+        if B <= 256:
+            rec['host_us'] = k3_host_us(kern)
+        if composed:
+            comp = k3_composed(args, kw)
+            rec['composed_ms'] = timed_ms(comp, iters)
+            rec['composed_device_ms'] = device_ms(comp)
     rec['ids'] = k_idx.cpu().numpy()
     log('  %-28s ok=%s max_abs_err=%.3g swaps=%d%s' % (
         name, ok, err, swaps,
-        ' kernel %.3f ms, plain %.3f ms' % (rec['ms'], rec['plain_ms'])
-        if iters else ''))
+        ' kernel %.3f ms (device %.4f), plain %.3f ms%s' % (
+            rec['ms'], rec['device_ms'], rec['plain_ms'],
+            ', composed %.3f ms (device %.4f)' % (
+                rec['composed_ms'], rec['composed_device_ms'])
+            if composed else '') if iters else ''))
     return rec
 
 
@@ -310,16 +414,81 @@ def phase2():
             phase2_window_agg())
 
 
+def one_past_split(B, n, slots, lo=2000, min_tiles=1):
+    '''The first I >= lo whose last split in K3's plan (at ``min_tiles``
+    tiles a split or more) is one tile that holds one item (I one past
+    the split boundary before it).'''
+    from mfrec_tpu_torch.ops.topn_kernel import (ITEM_TILE, split_tiles,
+                                                 topn_plan)
+    for I in range(lo + (1 - lo) % ITEM_TILE, lo + 200_000, ITEM_TILE):
+        p = topn_plan(B, I, n, slots, min_tiles)
+        last = split_tiles(p['tiles'], p['splits'], p['splits'] - 1)
+        if p['splits'] > 1 and last[0] == p['tiles'] - 1:
+            return I
+    raise SystemExit('no I with one item past a split')
+
+
+K3_EDGE_MODES = (('exact', {}), ('fast', dict(fast=True, q_bf16=True)),
+                 ('fast f32 Q', dict(fast=True)))
+
+
+def k3_edge_cases():
+    '''The redesigned K3's edges, in each mode: B off the 64-user tile,
+    I under one item tile and one item past a split, exact ties (ids
+    ascending), rated ids on every tile's first and last item, a user
+    who rated all but n - 1 items, n either side of the running list's
+    limit, k off the 128-byte chunk.'''
+    import torch
+    from mfrec_tpu_torch.ops import topn_kernel as tk
+    recs = []
+    for mname, kw in K3_EDGE_MODES:
+        fast = kw.get('fast', False)
+        slots = tk._slots(tk._library(), torch.device('cuda', 0),
+                          int(kw.get('q_bf16', False)), 64, 10, fast)
+        for name, shape in (
+                ('B=1', dict(B=1, I=5000, k=64, n=10, L=20)),
+                ('B=65', dict(B=65, I=5000, k=64, n=10, L=20)),
+                ('B=129', dict(B=129, I=3001, k=64, n=10, L=20)),
+                ('B=1025', dict(B=1025, I=2000, k=64, n=10, L=20)),
+                ('I<tile', dict(B=9, I=100, k=64, n=10, L=5)),
+                ('I one past split', dict(B=70, I=one_past_split(70, 10,
+                                                                 slots),
+                                          k=64, n=10, L=20, min_tiles=1)),
+                ('ties n=7', dict(B=70, I=3001, k=64, n=7, edge='ties')),
+                ('ties n=40', dict(B=70, I=3001, k=64, n=40, edge='ties')),
+                ('rated bounds n=10', dict(B=66, I=5000, k=64, n=10,
+                                           edge='bounds')),
+                ('rated bounds n=33', dict(B=66, I=5000, k=64, n=33,
+                                           edge='bounds')),
+                ('all but n-1 n=5', dict(B=9, I=3000, k=64, n=5, L=30,
+                                         edge='all_but')),
+                ('all but n-1 n=40', dict(B=9, I=3000, k=64, n=40, L=30,
+                                          edge='all_but')),
+                ('n=1', dict(B=17, I=4000, k=64, n=1, L=30)),
+                ('n=32', dict(B=17, I=4000, k=64, n=32, L=30)),
+                ('n=33', dict(B=17, I=4000, k=64, n=33, L=30)),
+                ('n=1024', dict(B=7, I=3000, k=64, n=1024, L=30)),
+                ('k=1', dict(B=40, I=3000, k=1, n=10, L=10)),
+                ('k=3', dict(B=40, I=3000, k=3, n=10, L=10)),
+                ('k=66', dict(B=40, I=3000, k=66, n=10, L=10)),
+                ('k=256', dict(B=40, I=3000, k=256, n=10, L=10)),
+                ('k=256 n=40', dict(B=40, I=3000, k=256, n=40, L=10))):
+            recs.append(kernel_case('d %s %s' % (mname, name), **shape,
+                                    **kw))
+    return recs
+
+
 def phase2_topn():
     log('phase 2: K3 against its plain twin (tf32 off)')
     card = card_line()
     big = dict(B=1024, I=360_000, k=64, n=10)
     recs = [
-        kernel_case('a exact', **big, iters=20),
-        kernel_case('a exact rated64', **big, L=64, iters=20),
-        kernel_case('b fast', **big, fast=True, q_bf16=True, iters=20),
+        kernel_case('a exact', **big, iters=20, composed=True),
+        kernel_case('a exact rated64', **big, L=64, iters=20, composed=True),
+        kernel_case('b fast', **big, fast=True, q_bf16=True, iters=20,
+                    composed=True),
         kernel_case('b fast rated64', **big, L=64, fast=True, q_bf16=True,
-                    iters=20),
+                    iters=20, composed=True),
         kernel_case('c I=10001 k=128', B=37, I=10_001, k=128, n=10, L=16),
         kernel_case('c k=66 n=1', B=20, I=5_003, k=66, n=1, L=8),
         kernel_case('c n=1024', B=19, I=3_000, k=64, n=1024, L=100),
@@ -336,9 +505,10 @@ def phase2_topn():
                                        'logistic')] + [
         # the serving batch at the ML-10M shape (pad_to=256)
         kernel_case('serving exact', B=256, I=10_677, k=64, n=10, L=256,
-                    iters=50),
+                    iters=50, composed=True),
         kernel_case('serving fast', B=256, I=10_677, k=64, n=10, L=256,
-                    fast=True, q_bf16=True, iters=50)]
+                    fast=True, q_bf16=True, iters=50, composed=True)
+    ] + k3_edge_cases()
     ex = recs[1]['ids']
     fa = recs[3]['ids']
     overlap = float(np.mean([len(set(ex[b]) & set(fa[b])) / ex.shape[1]
@@ -346,8 +516,12 @@ def phase2_topn():
     log('  fast vs exact top-10 overlap at (b): %.4f' % overlap)
     for r in recs:
         if 'ms' in r:
-            log('  time %-18s kernel %.3f ms, plain %.3f ms  [%s]'
-                % (r['case'], r['ms'], r['plain_ms'], card))
+            log('  time %-18s kernel %.3f ms (device %.4f), plain %.3f ms, '
+                'composed %.3f ms (device %.4f)%s  [%s]'
+                % (r['case'], r['ms'], r['device_ms'], r['plain_ms'],
+                   r['composed_ms'], r['composed_device_ms'],
+                   ', host %.1f us a call' % r['host_us']
+                   if 'host_us' in r else '', card))
     bad = [r['case'] for r in recs if not r['ok']]
     if bad or overlap < 0.99:
         raise SystemExit('phase 2 failed: %s, overlap %.4f' % (bad, overlap))
@@ -2909,12 +3083,76 @@ def probe_entries(p8):
         'marginal_sweep_us_real_batches': p8['thr']}]
 
 
-def k3_bound(B, I, k):
-    '''K3's least time at one shape: 2*B*I*k f32 FMA operations over the
-    FP32 peak against P, Q, the biases and the result moved once.'''
-    return roofline_ms(2.0 * B * I * k,
-                       4.0 * (B * k + I * k + B + I) + 8.0 * B * 10)
+def k3_bound(B, I, k, n, L=0, route='tf32x3'):
+    '''K3's least time at one shape, in ms, and what bounds it: the larger
+    of the 2*B*I*k multiply-add operations over the route's peak and the
+    bytes each input is read and each output written once (P f32, Q f32
+    or, for 'bf16', bf16, the biases, L rated ids a user and their
+    counts, n ids and scores a user).  Routes: 'f32' the CUDA cores at
+    67 TFLOP/s; 'tf32x3' three products on the TF32 tensor cores at 495
+    TFLOP/s (split TF32, what meets the exact mode's tolerance on the
+    tensor cores); 'bf16' the bf16 tensor cores at 989 TFLOP/s.'''
+    peak = {'f32': PEAK_F32_FLOPS, 'tf32x3': PEAK_TF32_TENSOR_FLOPS / 3.0,
+            'bf16': PEAK_BF16_TENSOR_FLOPS}[route]
+    nbytes = (4.0 * B * k + (2.0 if route == 'bf16' else 4.0) * I * k
+              + 4.0 * (B + I) + 4.0 * B * (L + 1) + 8.0 * B * n)
+    t_ops, t_bytes = 2.0 * B * I * k / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
 
+
+def k3_entry(k3_recs, launches, worst):
+    '''The kernels line's K3 entry.  ``ms``, ``plain_ms`` and ``bound_ms``
+    keep their meaning (the exact mode at the bench shape: CUDA events,
+    and the f32 CUDA-core bound); beside them the split-TF32 bound of the
+    route the kernel takes (``bound_ms_split_tf32``), the fast mode's
+    bf16 one, device times, the wrapper's host time and the composed
+    yardstick; ``share_of_bound*`` is a bound over the device time.'''
+    by = {r['case']: r for r in k3_recs}
+    ex, fa = by['a exact'], by['b fast']
+    se, sf = by['serving exact'], by['serving fast']
+    b_ex, b_by = k3_bound(1024, 360_000, 64, 10, route='f32')
+    b_tf, _ = k3_bound(1024, 360_000, 64, 10, route='tf32x3')
+    b_fast, b_fast_by = k3_bound(1024, 360_000, 64, 10, route='bf16')
+    b_se, _ = k3_bound(256, 10_677, 64, 10, L=256, route='tf32x3')
+    b_sf, _ = k3_bound(256, 10_677, 64, 10, L=256, route='bf16')
+    return [{
+        'name': 'topn (K3, fused top-n retrieval)', 'route': 'cuda',
+        'source': 'mfrec_tpu_torch/csrc/topn.cu',
+        'replaces': 'mfrec_tpu/ops/pallas_topk.py:90',
+        'launches': launches,
+        'max_abs_err': max([worst] + [r['max_abs_err'] for r in k3_recs]),
+        'ms': ex['ms'], 'plain_ms': ex['plain_ms'],
+        'bound_ms': b_ex, 'bound_by': b_by, 'library_ms': None,
+        'shape': 'B=1024 I=360000 k=64 n=10',
+        'exact_route': 'split tf32 on the tensor cores',
+        'bound_ms_split_tf32': b_tf,
+        'device_ms': ex['device_ms'],
+        'composed_ms': ex['composed_ms'],
+        'composed_device_ms': ex['composed_device_ms'],
+        'share_of_bound': b_ex / ex['device_ms'],
+        'share_of_bound_split_tf32': b_tf / ex['device_ms'],
+        'ms_rated64': by['a exact rated64']['ms'],
+        'device_ms_rated64': by['a exact rated64']['device_ms'],
+        'ms_fast': fa['ms'], 'plain_ms_fast': fa['plain_ms'],
+        'device_ms_fast': fa['device_ms'],
+        'composed_ms_fast': fa['composed_ms'],
+        'composed_device_ms_fast': fa['composed_device_ms'],
+        'bound_ms_fast': b_fast, 'bound_by_fast': b_fast_by,
+        'share_of_bound_fast': b_fast / fa['device_ms'],
+        'ms_fast_rated64': by['b fast rated64']['ms'],
+        'device_ms_fast_rated64': by['b fast rated64']['device_ms'],
+        'serving_shape': 'B=256 I=10677 k=64 n=10 L=256',
+        'ms_serving': se['ms'], 'device_ms_serving': se['device_ms'],
+        'host_us_serving': se['host_us'],
+        'plain_ms_serving': se['plain_ms'],
+        'composed_ms_serving': se['composed_ms'],
+        'composed_device_ms_serving': se['composed_device_ms'],
+        'bound_ms_serving': b_se,
+        'ms_serving_fast': sf['ms'], 'device_ms_serving_fast': sf['device_ms'],
+        'host_us_serving_fast': sf['host_us'],
+        'composed_device_ms_serving_fast': sf['composed_device_ms'],
+        'bound_ms_serving_fast': b_sf}]
 
 
 def k2_entry(k2_recs, als):
@@ -3141,6 +3379,92 @@ def ab_k4(lay):
     return out
 
 
+K3_AB_CASES = (
+    ('bench_exact', dict(B=1024, I=360_000, k=64, n=10, L=0, fast=False)),
+    ('bench_exact_rated64', dict(B=1024, I=360_000, k=64, n=10, L=64,
+                                 fast=False)),
+    ('bench_fast', dict(B=1024, I=360_000, k=64, n=10, L=0, fast=True)),
+    ('bench_fast_rated64', dict(B=1024, I=360_000, k=64, n=10, L=64,
+                                fast=True)),
+    ('serving_exact', dict(B=256, I=10_677, k=64, n=10, L=256, fast=False)),
+    ('serving_fast', dict(B=256, I=10_677, k=64, n=10, L=256, fast=True)))
+
+
+def k3_split(fn, n=20):
+    '''Device time per call of each kernel ``fn`` launches (torch.profiler,
+    ms, by the kernel's name without its arguments and namespace).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, (count, ms) in device_kernels(prof).items():
+        m = re.search(r'(\w+)\s*[<(]',
+                      name.replace('(anonymous namespace)::', ''))
+        short = m.group(1) if m else name[:40]
+        c, t = out.get(short, (0, 0.0))
+        out[short] = (c + count, t + ms)
+    return {x: dict(launches_per_call=c / n, ms=t / n)
+            for x, (c, t) in out.items()}
+
+
+def k3_host_us(fn, calls=200):
+    '''Host microseconds per wrapper call: the enqueue of ``calls``
+    back-to-back calls on the host clock, before the device is waited
+    for (the device's work per call is shorter, so the queue never
+    fills).'''
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
+
+
+def ab_k3():
+    '''K3 in this process's checkout at the bench shape (exact, exact with
+    64 rated ids, fast, fast rated) and the serving batch (exact, fast),
+    on ``k3_inputs``' seeded inputs: CUDA events around one call, the
+    device time of each kernel it launches, and at the serving batch the
+    host microseconds per wrapper call; and the device time under other
+    split rules (resident blocks x tiles, ``topn_plan``'s arguments).'''
+    from mfrec_tpu_torch.ops import topn_kernel as tk
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    out = {}
+    for name, c in K3_AB_CASES:
+        t = k3_inputs(**c, q_bf16=c['fast'])
+        call = functools.partial(topn_scores_kernel, *t['args'],
+                                 **t['kw'])
+        rec = {'event_ms': timed_ms(call, 20 if c['B'] > 256 else 50),
+               'device_ms': device_ms(call), 'kernels': k3_split(call)}
+        if c['B'] <= 256:
+            rec['host_us'] = k3_host_us(call)
+        comp = k3_composed(t['args'], t['kw'])
+        rec['composed_event_ms'] = timed_ms(comp, 10)
+        rec['composed_device_ms'] = device_ms(comp, 10)
+        rec['composed_f32_out'] = comp.f32_out
+        out[name] = rec
+        del comp
+        if hasattr(tk, 'MIN_TILES_PER_SPLIT'):
+            plan = tk.topn_plan
+            try:       # the grid's split rule: resident blocks x tiles
+                for slots, mt in ((132, 1), (198, 1), (264, 1), (264, 2)):
+                    tk.topn_plan = (lambda B, I, n, _s, min_tiles=None,
+                                    S=slots, M=mt: plan(B, I, n, S, M))
+                    rec['device_ms_slots_%d_min_tiles_%d' % (slots, mt)] = \
+                        device_ms(call)
+            finally:
+                tk.topn_plan = plan
+    return out
+
+
 def ab_als_data(path):
     '''bench_als's data and buckets (69,878 x 10,677, 23M raw implicit
     draws), built once by the process that starts the A/B and loaded by
@@ -3223,7 +3547,7 @@ def ab_als(ub, ib, users, items):
     return out
 
 
-AB_MODES = ('k1', 'k4', 'k1-rows', 'als')
+AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3')
 
 
 def ab_main(mode, checkouts, child):
@@ -3239,7 +3563,10 @@ def ab_main(mode, checkouts, child):
         sys.path.insert(0, checkout)
         from mfrec_tpu_torch.ops import _cuda_build
         from mfrec_tpu_torch.ops import half_pass_kernel as hk
-        if als:
+        if mode == 'k3':
+            _cuda_build.build(['topn'])
+            out = ab_k3()
+        elif als:
             _cuda_build.build([x for x in ('pcg', 'cg_bucket') if os.path.exists(
                 os.path.join(checkout, 'mfrec_tpu_torch', 'csrc', x + '.cu'))])
             out = ab_als(*ab_als_data(cache))
@@ -3254,6 +3581,10 @@ def ab_main(mode, checkouts, child):
         out.update(checkout=checkout, card=card_line())
         print('AB %s %s' % (mode, json.dumps(out)), flush=True)
         return 0
+    if mode == 'k3':      # seeded inputs made in each process
+        return max(subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--ab', mode,
+             '--ab-child', d]).returncode for d in checkouts)
     os.makedirs(os.path.dirname(cache), exist_ok=True)
     if os.path.exists(cache):
         os.remove(cache)
@@ -3276,8 +3607,8 @@ def main(argv=None):
     ap.add_argument('--phases', default='12345678',
                     help='which phases to run (default: all)')
     ap.add_argument('--ab', choices=AB_MODES,
-                    help='instead of the phases, time K1, K4 or the ALS CG '
-                         'path in each checkout given, in the order given')
+                    help='instead of the phases, time K1, K3, K4 or the ALS '
+                         'CG path in each checkout given, in the order given')
     ap.add_argument('--ab-child', action='store_true', help=argparse.SUPPRESS)
     ap.add_argument('checkouts', nargs='*', help='checkouts for --ab')
     args = ap.parse_args(argv)
@@ -3306,19 +3637,8 @@ def main(argv=None):
     fn = phase7() if '7' in args.phases else {}
     p8 = phase8() if '8' in args.phases else {}
     if k3_recs:
-        k3_ms, k3_by = k3_bound(1024, 360_000, 64)
         main1 = k1_recs[0]
-        print(json.dumps({'kernels': [{
-            'name': 'topn (K3, fused top-n retrieval)', 'route': 'cuda',
-            'source': 'mfrec_tpu_torch/csrc/topn.cu',
-            'replaces': 'mfrec_tpu/ops/pallas_topk.py:90',
-            'launches': launches,
-            'max_abs_err': max([worst] + [r['max_abs_err'] for r in k3_recs]),
-            'ms': k3_recs[0]['ms'], 'plain_ms': k3_recs[0]['plain_ms'],
-            'bound_ms': k3_ms, 'bound_by': k3_by, 'library_ms': None,
-            'ms_fast': k3_recs[2]['ms'],
-            'plain_ms_fast': k3_recs[2]['plain_ms'],
-            'shape': 'B=1024 I=360000 k=64 n=10'}, {
+        print(json.dumps({'kernels': k3_entry(k3_recs, launches, worst) + [{
             'name': 'half_pass (K1, fused sorted-window SGD batch step)',
             'route': 'cuda',
             'source': 'mfrec_tpu_torch/csrc/half_pass.cuh',

@@ -18,6 +18,15 @@ id-in-mantissa merge).  ``fast`` in the model layer sets both.
 by what is installed.  Item padding is not needed: the kernel bound-
 checks ``i < I``.
 
+The kernel's grid is planned here (``topn_plan``): blocks of
+``USER_TILE`` users walk ``ITEM_TILE``-item tiles, the items cut into as
+many splits as fill the card's resident blocks.  The route is by n:
+n <= ``RUN_MAX`` keeps a running top-n per user in the block (one
+launch, and a join launch when there is more than one split); larger n
+sorts each tile's keys and merges the per-tile lists in a second
+launch.  The exact mode's products run as split TF32 on the tensor
+cores, the fast mode's in bf16.
+
 Rated lists reach the kernel as ``rated_idx [B, L] int32`` and
 ``rated_cnt [B] int32``: the first ``rated_cnt[u]`` ids of row u,
 ascending (CSR order, what ``ops.topk.pad_rated_lists`` gives).
@@ -36,6 +45,40 @@ PACK_BITS = 12
 MAX_N = 1024
 MAX_K = 256
 MAX_B = 65535
+USER_TILE = 64        # users per block (csrc/topn.cu UT)
+ITEM_TILE = 128       # items per tile (IT)
+RUN_MAX = 32          # longest running list (RUN_MAX); above, the sort route
+MIN_TILES_PER_SPLIT = 2
+
+
+def topn_plan(B, I, n, slots, min_tiles=None):
+    '''The kernel's grid for a call: ``ceil(B / USER_TILE)`` user tiles
+    times ``splits`` item ranges, each an even share (``tiles_per_split``
+    or one fewer) of the ``ITEM_TILE``-item tiles: as many splits as fit
+    ``slots`` resident blocks (the card's SMs times the blocks one SM
+    holds) with at least ``min_tiles`` tiles each (default
+    ``MIN_TILES_PER_SPLIT``).  ``route`` is 'running' (n <= RUN_MAX) or
+    'sort'; ``workspace`` the u64 keys of scratch it needs, ``launches``
+    1 or 2.'''
+    if min_tiles is None:
+        min_tiles = MIN_TILES_PER_SPLIT
+    user_tiles = -(-B // USER_TILE)
+    tiles = -(-I // ITEM_TILE)
+    splits = max(1, min(tiles // max(1, min_tiles), slots // user_tiles))
+    if n > RUN_MAX:
+        route, ws = 'sort', B * tiles * min(n, ITEM_TILE)
+    else:
+        route, ws = 'running', B * splits * n if splits > 1 else 0
+    return {'user_tiles': user_tiles, 'tiles': tiles, 'splits': splits,
+            'tiles_per_split': -(-tiles // splits), 'route': route,
+            'workspace': ws,
+            'launches': 2 if route == 'sort' or splits > 1 else 1}
+
+
+def split_tiles(tiles, splits, split):
+    '''The item tiles ``[t0, t1)`` of one split, as the kernel cuts them:
+    an even share of ``tiles``.'''
+    return split * tiles // splits, (split + 1) * tiles // splits
 
 
 def kernel_rated_lists(rated_idx, rated_mask):
@@ -160,10 +203,12 @@ def _check_args(P_rows, Q, bu_rows, bi, n, rated_idx, rated_cnt, bf16_dot):
 def topn_scores_kernel(P_rows, Q, bu_rows, bi, mu, n, rated_idx=None,
                        rated_cnt=None, bf16_dot=False, packed=False):
     '''Top-n retrieval.  CUDA tensors: launch K3 (``csrc/topn.cu``) on
-    the current stream; CPU tensors: ``topn_scores_ref``.  Raises on a
-    device, dtype, shape or contiguity the kernel does not take, and on
-    a CUDA error at launch.  ``topn_scores_kernel.launches`` counts the
-    kernel's launches.'''
+    the current stream, one or two launches as ``topn_plan`` says
+    (n <= RUN_MAX = 32: a running top-n per user, n > 32: per-tile sorts
+    and a merge); CPU tensors: ``topn_scores_ref``.  Raises on a device,
+    dtype, shape or contiguity the kernel does not take, and on a CUDA
+    error at launch.  ``topn_scores_kernel.launches`` counts the calls
+    that launched the kernel.'''
     _check_args(P_rows, Q, bu_rows, bi, n, rated_idx, rated_cnt, bf16_dot)
     dev = P_rows.device
     if dev.type == 'cpu':
@@ -176,21 +221,24 @@ def topn_scores_kernel(P_rows, Q, bu_rows, bi, mu, n, rated_idx=None,
     B, k = P_rows.shape
     I = Q.shape[0]
     n = int(n)
+    q_bf16 = int(Q.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
-        ws = int(lib.topn_workspace(B, I, n))
-        ws_a = torch.empty(ws, dtype=torch.int64, device=dev)
-        ws_b = torch.empty(ws, dtype=torch.int64, device=dev)
+        plan = topn_plan(B, I, n, _slots(lib, dev, q_bf16, k, n,
+                                         bool(bf16_dot)))
+        ws = torch.empty(plan['workspace'], dtype=torch.int64, device=dev) \
+            if plan['workspace'] else None
         idx = torch.empty((B, n), dtype=torch.int32, device=dev)
         scores = torch.empty((B, n), dtype=torch.float32, device=dev)
         L = 0 if rated_idx is None else int(rated_idx.shape[1])
         rc = lib.topn_launch(
-            P_rows.data_ptr(), Q.data_ptr(), int(Q.dtype == torch.bfloat16),
+            P_rows.data_ptr(), Q.data_ptr(), q_bf16,
             bu_rows.data_ptr(), bi.data_ptr(), float(mu),
             rated_idx.data_ptr() if L else None,
             rated_cnt.data_ptr() if L else None,
             L, B, I, k, n, int(bool(bf16_dot)), int(bool(packed)),
-            ws_a.data_ptr(), ws_b.data_ptr(), idx.data_ptr(),
-            scores.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            plan['splits'], None if ws is None else ws.data_ptr(),
+            idx.data_ptr(), scores.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('topn kernel launch failed: CUDA error %d (%s)'
                            % (rc, lib.topn_error_string(rc).decode()))
@@ -198,17 +246,34 @@ def topn_scores_kernel(P_rows, Q, bu_rows, bi, mu, n, rated_idx=None,
     return idx, scores
 
 
+_SLOTS = {}
+
+
+def _slots(lib, dev, q_bf16, k, n, bf16_dot):
+    '''Resident main-kernel blocks on the card for this mode and rank
+    (SMs times blocks per SM), queried once per process.'''
+    key = (dev.index, q_bf16, k, min(n, RUN_MAX + 1), bf16_dot)
+    slots = _SLOTS.get(key)
+    if slots is None:
+        per_sm = lib.topn_blocks_per_sm(q_bf16, k, n, int(bf16_dot))
+        if per_sm < 1:
+            raise RuntimeError('topn kernel: no block fits an SM (k=%d)' % k)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = _SLOTS[key] = per_sm * sms
+    return slots
+
+
 topn_scores_kernel.launches = 0
 
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topn_workspace.argtypes = [i, i, i]
-    lib.topn_workspace.restype = ctypes.c_longlong
+    lib.topn_blocks_per_sm.argtypes = [i, i, i, i]
+    lib.topn_blocks_per_sm.restype = i
     lib.topn_error_string.argtypes = [i]
     lib.topn_error_string.restype = ctypes.c_char_p
     lib.topn_launch.argtypes = [p, p, i, p, p, ctypes.c_float, p, p,
-                                i, i, i, i, i, i, i, p, p, p, p, p]
+                                i, i, i, i, i, i, i, i, p, p, p, p]
     lib.topn_launch.restype = i
 
 

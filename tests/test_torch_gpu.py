@@ -102,6 +102,140 @@ def test_cuda_model_matches_cpu_model(cuda, fast):
         assert ok, (pred, err, swaps)
 
 
+def _one_past_split(B, n, slots, lo=2000, min_tiles=1):
+    '''The first I >= lo whose last split in the plan (at ``min_tiles``
+    tiles a split or more) is one tile that holds one item (I one past
+    the split boundary before it).'''
+    from mfrec_tpu_torch.ops.topn_kernel import (ITEM_TILE, split_tiles,
+                                                 topn_plan)
+    for I in range(lo + (1 - lo) % ITEM_TILE, lo + 200_000, ITEM_TILE):
+        p = topn_plan(B, I, n, slots, min_tiles)
+        last = split_tiles(p['tiles'], p['splits'], p['splits'] - 1)
+        if p['splits'] > 1 and last[0] == p['tiles'] - 1:
+            return I
+    raise AssertionError('no such I')
+
+
+def _edge_inputs(B, I, k, n, L, edge, seed):
+    '''Seeded inputs with one of the redesigned kernel's edges: 'ties'
+    (every other Q row and item bias a copy of the one before),
+    'bounds' (every user rated the first and last item of every item
+    tile, hence of every split), 'all_but' (user 0 rated all but n - 1
+    items).'''
+    from mfrec_tpu_torch.ops.topn_kernel import ITEM_TILE
+    P, Q, bu, bi, ridx, rmask = _case(B, I, k, L, seed)
+    if edge == 'ties':
+        Q[1::2], bi[1::2] = Q[0:I - 1:2], bi[0:I - 1:2]
+    elif edge == 'bounds':
+        starts = np.arange(0, I, ITEM_TILE)
+        marks = np.unique(np.concatenate(
+            [starts, np.minimum(starts + ITEM_TILE, I) - 1]))
+        ridx = np.tile(marks.astype(np.int32), (B, 1))
+        rmask = np.ones(ridx.shape, np.float32)
+    elif edge == 'all_but':
+        rng = np.random.default_rng(seed + 1)
+        keep = rng.choice(I, n - 1, replace=False)
+        rest = np.setdiff1d(np.arange(I, dtype=np.int32), keep)
+        wide = np.zeros((B, rest.size), np.int32)
+        wmask = np.zeros((B, rest.size), np.float32)
+        wide[0], wmask[0] = rest, 1.0
+        wide[1:, :L], wmask[1:, :L] = ridx[1:], rmask[1:]
+        ridx, rmask = wide, wmask
+    return P, Q, bu, bi, ridx, rmask
+
+
+K3_MODES = {'exact': (False, False), 'fast': (True, True),
+            'fast_f32q': (True, False)}
+
+
+def _k3_check(cuda, P, Q, bu, bi, ridx, rmask, n, mode):
+    fast, q_bf16 = K3_MODES[mode]
+    ri, rc = kernel_rated_lists(ridx, rmask)
+    args = [torch.from_numpy(a).to(cuda) for a in (P, Q, bu, bi)]
+    if q_bf16:
+        args[1] = args[1].to(torch.bfloat16)
+    r = [torch.from_numpy(a).to(cuda) for a in (ri, rc)]
+    before = topn_scores_kernel.launches
+    idx, s = topn_scores_kernel(*args, 3.5, n, *r, bf16_dot=fast,
+                                packed=fast)
+    torch.cuda.synchronize()
+    assert topn_scores_kernel.launches == before + 1
+    ref = topn_scores_ref(*args, 3.5, min(n + 1, Q.shape[0]), *r,
+                          bf16_dot=fast, packed=fast)
+    ok, err, swaps = topn_agreement(idx.cpu(), s.cpu(), ref[0].cpu(),
+                                    ref[1].cpu(), n,
+                                    **(FAST if fast else EXACT))
+    assert ok, (err, swaps)
+    return idx.cpu().numpy(), s.cpu().numpy()
+
+
+@pytest.mark.parametrize('mode', list(K3_MODES))
+@pytest.mark.parametrize('shape', [
+    # B off the 64-user tile
+    (1, 5000, 64, 10, 20), (65, 5000, 64, 10, 20), (129, 3001, 64, 10, 20),
+    (1025, 2000, 64, 10, 20),
+    # I under one 128-item tile
+    (9, 100, 64, 10, 5), (9, 11, 64, 10, 0),
+    # n either side of the running list's limit, and the largest n
+    (17, 4000, 64, 1, 30), (17, 4000, 64, 32, 30), (17, 4000, 64, 33, 30),
+    (7, 3000, 64, 1024, 30),
+    # k off the 128-byte chunk
+    (40, 3000, 1, 10, 10), (40, 3000, 3, 10, 10), (40, 3000, 66, 10, 10),
+    (40, 3000, 256, 10, 10), (40, 3000, 256, 40, 10)])
+def test_kernel_edge_shapes(cuda, mode, shape):
+    B, I, k, n, L = shape
+    _k3_check(cuda, *_case(B, I, k, L, seed=I + k), n, mode)
+
+
+@pytest.mark.parametrize('mode', list(K3_MODES))
+@pytest.mark.parametrize('n', [10, 32, 33])
+def test_kernel_one_item_past_a_split(cuda, mode, n, monkeypatch):
+    '''A split of one tile that holds one item (splits of one tile
+    allowed for the case).'''
+    from mfrec_tpu_torch.ops import topn_kernel as tk
+    monkeypatch.setattr(tk, 'MIN_TILES_PER_SPLIT', 1)
+    fast, q_bf16 = K3_MODES[mode]
+    slots = tk._slots(tk._library(), cuda, int(q_bf16), 64, n, fast)
+    I = _one_past_split(70, n, slots)
+    idx, _ = _k3_check(cuda, *_case(70, I, 64, 20, seed=3), n, mode)
+    assert idx.max() < I
+
+
+@pytest.mark.parametrize('mode', list(K3_MODES))
+@pytest.mark.parametrize('n', [7, 32, 40])
+def test_kernel_ties_order_by_id(cuda, mode, n):
+    B, I = 70, 3001
+    P, Q, bu, bi, ridx, rmask = _edge_inputs(B, I, 64, n, 0, 'ties', 5)
+    Pz = P.copy()
+    idx, s = _k3_check(cuda, Pz, Q, bu, bi, ridx, rmask, n, mode)
+    # equal scores keep the lower id first
+    same = s[:, 1:] == s[:, :-1]
+    assert (idx[:, 1:][same] > idx[:, :-1][same]).all()
+    assert same.any()
+
+
+@pytest.mark.parametrize('mode', list(K3_MODES))
+@pytest.mark.parametrize('n', [10, 33])
+def test_kernel_rated_on_tile_bounds(cuda, mode, n):
+    from mfrec_tpu_torch.ops.topn_kernel import ITEM_TILE
+    B, I = 66, 5000
+    P, Q, bu, bi, ridx, rmask = _edge_inputs(B, I, 64, n, 0, 'bounds', 6)
+    # the bounds score best, so a missed mask shows
+    bi[ridx[0]] += 50.0
+    idx, _ = _k3_check(cuda, P, Q, bu, bi, ridx, rmask, n, mode)
+    assert not np.isin(idx, ridx[0]).any()
+    assert ridx[0][1] == ITEM_TILE - 1
+
+
+@pytest.mark.parametrize('mode', list(K3_MODES))
+@pytest.mark.parametrize('n', [5, 32, 40])
+def test_kernel_all_but_n_minus_1_rated(cuda, mode, n):
+    B, I = 9, 3000
+    idx, s = _k3_check(cuda, *_edge_inputs(B, I, 64, n, 30, 'all_but', 7),
+                       n, mode)
+    assert (s[0, :n - 1] > -1e38).all() and s[0, n - 1] < -1e38
+
+
 K1_TOL = dict(atol=5e-3, rtol=5e-2)
 
 

@@ -221,3 +221,65 @@ def test_model_on_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError):
         GDRecommender(4, 6)
     assert topn_kernel.MAX_N == 1024
+
+
+@pytest.mark.parametrize('B,I,n,slots', [
+    (1, 1, 1, 264), (1, 5000, 10, 264), (65, 5000, 10, 264),
+    (256, 10_677, 10, 264), (1024, 360_000, 10, 264), (1025, 2000, 10, 132),
+    (65_535, 3000, 10, 264), (7, 3000, 1024, 132), (40, 3000, 40, 132)])
+def test_plan_covers_every_tile_once(B, I, n, slots):
+    '''Every split is non-empty, the splits cover the item tiles, and the
+    grid fits the resident blocks in one wave unless the user tiles
+    alone exceed them.'''
+    p = topn_kernel.topn_plan(B, I, n, slots)
+    tiles = -(-I // topn_kernel.ITEM_TILE)
+    assert p['tiles'] == tiles
+    assert p['user_tiles'] == -(-B // topn_kernel.USER_TILE)
+    sizes = [t1 - t0 for t0, t1 in (topn_kernel.split_tiles(
+        tiles, p['splits'], s) for s in range(p['splits']))]
+    assert sum(sizes) == tiles and min(sizes) >= 1
+    assert max(sizes) == p['tiles_per_split']
+    assert p['splits'] * p['user_tiles'] <= max(slots, p['user_tiles'])
+    if p['splits'] > 1:
+        assert min(sizes) >= topn_kernel.MIN_TILES_PER_SPLIT
+
+
+@pytest.mark.parametrize('n,route,launches', [
+    (1, 'running', 2), (32, 'running', 2), (33, 'sort', 2),
+    (1024, 'sort', 2)])
+def test_plan_routes_by_n(n, route, launches):
+    '''n <= RUN_MAX keeps a running list, larger n sorts tiles; each call
+    is at most two launches.'''
+    p = topn_kernel.topn_plan(256, 10_677, n, 264)
+    assert topn_kernel.RUN_MAX == 32
+    assert (p['route'], p['launches']) == (route, launches)
+    m = min(n, topn_kernel.ITEM_TILE)
+    want = 256 * p['splits'] * n if route == 'running' \
+        else 256 * p['tiles'] * m
+    assert p['workspace'] == want
+
+
+@pytest.mark.parametrize('B,I,splits,tps,ws,launches', [
+    (1024, 360_000, 16, 176, 1024 * 16 * 10, 2),   # the bench shape
+    (256, 10_677, 42, 2, 256 * 42 * 10, 2),         # the serving batch
+    (64, 200, 1, 2, 0, 1),                          # one split: one launch
+    (4096, 10_677, 4, 21, 4096 * 4 * 10, 2)])
+def test_plan_at_the_main_shapes(B, I, splits, tps, ws, launches):
+    '''At 132 SMs x 2 blocks: 16 splits of 175-176 tiles at the bench
+    shape, 42 of 2 at the serving batch; a single split writes the
+    result itself.'''
+    p = topn_kernel.topn_plan(B, I, 10, 264)
+    assert (p['splits'], p['tiles_per_split'], p['workspace'],
+            p['launches']) == (splits, tps, ws, launches)
+
+
+@pytest.mark.parametrize('tiles,splits', [(1, 1), (2813, 16), (84, 42),
+                                          (84, 33), (19, 7), (5, 5)])
+def test_split_tiles_cut_evenly(tiles, splits):
+    '''The splits' tile ranges cover every tile once, none empty, their
+    sizes at most one apart.'''
+    cuts = [topn_kernel.split_tiles(tiles, splits, s) for s in range(splits)]
+    assert cuts[0][0] == 0 and cuts[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    sizes = [t1 - t0 for t0, t1 in cuts]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
