@@ -7,6 +7,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --phases 125  # ... and the ALS slice
     python3 chip_smoke.py --phases 1267 # ... and the SVD++ and FN slice
     python3 chip_smoke.py --phases 18   # ... the probe tools (P1, P2)
+    python3 chip_smoke.py --phases 19   # ... example 2's workflow
     python3 chip_smoke.py --ab k1 A B B A   # K1 in checkouts A and B
     python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
@@ -87,6 +88,26 @@ Phase 8  the probe tools: P1 and P2 against their plain versions on the
          'hiT' (K1), and the deletion variants over the first 16 ML-10M
          user batches (K1's throughput regime), with P1's, P2's and
          K1's launch counts over that run.
+Phase 9  the reference's main workflow on the card at full width
+         (``examples/example2_movielens_100k_sgd.py``, on the synthetic
+         ML-100K u1 split of ``data/ml100k_like``, 16 features): (a)
+         ``GDRecommender(engine='fused').train(handle_bias=True)``, the
+         held-out RMSE (``test_predict_rating``) against the bias-only
+         floor, P@10, ``add_user`` through S1 and the new user's top-5
+         through K3, all against the same workflow on the CPU; (b) the
+         same with 'funk_fused', 'alternating' (through K1) and 'funk'
+         at a cut depth, S1's, K3's and K1's launches counted over (a)
+         and (b); (c) the fused and funk-fused tiers trained twice from
+         one seed, bit for bit; (d) the fused tier at bench.py's
+         operating point on phase 4's ML-10M shape (rank 64, B=16384,
+         lr 0.002), its epoch by phase 4's difference quotient, launches
+         an epoch and idle share; (e) ``add_user`` with 20 ratings on a
+         rank-64 ML-10M-shape model, timed, its row held to the CPU plain
+         path; (f) ``FNRecommender(engine='fused')`` and
+         ``optimize_regularization_vmapped`` against the CPU.  Phase 2
+         holds S1 to its plain version bit for bit (every bias mode and
+         fold-in mask; the ML-100K-shape epoch timed with its bound and
+         the measured chain floor).
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
@@ -230,11 +251,38 @@ def device_ms(fn, n=20):
     return total / 1e3 / n
 
 
+def kernel_device_ms(fn, name, n=10):
+    '''Mean device time of one kernel whose name holds ``name`` over ``n``
+    calls of ``fn`` under torch.profiler, and how many of its launches
+    the profiler recorded (the mean is over those).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(3):           # the tracer may drop a session's events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if name in e.name
+                and str(getattr(e, 'device_type', '')).endswith('CUDA')]
+        if durs:
+            break
+    return (sum(durs) / len(durs) / 1e3 if durs else None), len(durs)
+
+
+def ms_or_not(x, spec='%.4f ms'):
+    '''``spec % x``, or "not measured" where the tracer recorded none.'''
+    return 'not measured' if x is None else spec % x
+
+
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
-        half_pass_kernel, half_pass_old_kernel, probe_kernel, topn_kernel, \
-        window_agg_kernel
+        half_pass_kernel, half_pass_old_kernel, probe_kernel, \
+        serial_kernel, topn_kernel, window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -244,10 +292,10 @@ def phase1():
     t0 = time.perf_counter()
     k1 = tuple(half_pass_kernel.LIBRARIES.values())
     names = ('topn',) + k1 + ('pcg', 'cg_bucket', 'window_agg',
-                              'half_pass_old', 'probe')
+                              'half_pass_old', 'probe', 'serial_funk')
     _cuda_build.build(names)
     for mod in (topn_kernel, cg_kernel, window_agg_kernel,
-                half_pass_old_kernel, probe_kernel):
+                half_pass_old_kernel, probe_kernel, serial_kernel):
         mod._library()
     cg_kernel._bucket_library()
     for name in k1:
@@ -411,7 +459,7 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
 def phase2():
     return (phase2_topn(), phase2_half_pass(),
             {'pcg': phase2_pcg(), 'bucket': phase2_cg_bucket()},
-            phase2_window_agg())
+            phase2_window_agg(), phase2_serial())
 
 
 def one_past_split(B, n, slots, lo=2000, min_tiles=1):
@@ -2368,12 +2416,13 @@ def k4_launches():
 
 def zero_launch_counts():
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.serial_kernel import serial_epoch
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               window_aggregate, step_aggregate):
+               window_aggregate, step_aggregate, serial_epoch):
         fn.launches = 0
 
 
@@ -3292,6 +3341,566 @@ def k4_entry(k4, svdpp, fn):
         'step_enqueue_ms_fn': split(fn, 'X/Y step').get('host_ms')}]
 
 
+# S1 against its plain version on the card: bit for bit
+S1_CASE = dict(U=300, I=200, n=5000, k=16)
+# phase 9: examples/example2_movielens_100k_sgd.py:30-37 (16 features,
+# 30-120 epochs, min_improvement 1e-4, feature_init 0.1, K 0.02; lr 0.2
+# on 'alternating', 0.01 otherwise)
+EX2_PARAMS = {'min_epochs': 30, 'max_epochs': 120, 'min_improvement': 1e-4,
+              'feature_init': 0.1, 'regularization_model': 0.02,
+              'nbr_features': 16}
+# the funk engine's cut depth: min = max epochs per feature.  At 2 (16 x 2
+# serial epochs) the held-out RMSE stays above the bias-only floor (the
+# JAX package on the CPU: 0.9561 against 0.9528); 10 is the least of
+# those tried that passes it (0.9426)
+FUNK_CUT = 10
+# the card against the same workflow on the CPU (tests/test_torch_foldin.py
+# states the same): held-out RMSE within 1e-3, P@10 within 0.002 (20
+# hits of 9,430), the folded-in user's top-5 the same ids, scores within
+# 1e-3 -- f32 sums in another order, run for up to 120 epochs
+EX2_RMSE_TOL = 1e-3
+EX2_P10_TOL = 2e-3
+EX2_SCORE_TOL = 1e-3
+# bench.py's fused operating point (bench.py:764-773): rank 64, B=16384,
+# lr 0.002, K 0.02, fixed biases, init N(0, 0.1)
+FUSED_BENCH = dict(k=64, B=16384, lr=0.002, K=0.02, init=0.1)
+# FN's per-batch tier at the ML-100K shape: the model's defaults but 16
+# features, batch 1024 (tests/test_fn.py's), 3 epochs
+FN_FUSED_PARAMS = {'nbr_features': 16, 'batch_size': 1024,
+                   'engine': 'fused', 'nbr_epochs': 3,
+                   'min_improvement': -1.0}
+FN_FUSED_TOL = 1e-4
+
+
+def s1_inputs(U, I, n, k, seed, device):
+    '''A seeded stream and columns for S1: ids with repeats, ratings in
+    [1, 5], half the cache filled.'''
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dict(
+        uidx=t(rng.integers(0, U, n).astype(np.int32)),
+        iidx=t(rng.integers(0, I, n).astype(np.int32)),
+        r=t(rng.integers(1, 6, n).astype(np.float32)),
+        cache=t(np.where(rng.random(n) < 0.5, rng.uniform(1, 5, n),
+                         0).astype(np.float32)),
+        P=t(rng.normal(0.1, 0.05, (U, k)).astype(np.float32)),
+        Q=t(rng.normal(0.1, 0.05, (I, k)).astype(np.float32)),
+        bu=t(rng.normal(0, 0.1, U).astype(np.float32)),
+        bi=t(rng.normal(0, 0.1, I).astype(np.float32)))
+
+
+def s1_call(fn, d, f, mode, upd_u, upd_i, **kw):
+    '''One S1 epoch (``fn``: the wrapper or the plain version) on copies of
+    ``d``'s columns, at example 2's rates; returns (pf, qf, bu, bi,
+    rmse).'''
+    P, Q = d['P'], d['Q']
+    k = int(P.shape[1])
+    return fn(P[:, f].contiguous(), Q[:, f].contiguous(), d['cache'],
+              d['uidx'], d['iidx'], d['r'], f, k, 0.1, 0.01, 0.02, 3.53,
+              d['bu'].clone(), d['bi'].clone(), 0.005, 0.006, 0.012, 0.004,
+              bias_mode=mode, update_users=upd_u, update_items=upd_i, P=P,
+              Q=Q, **kw)
+
+
+def s1_bound_ms(n, U, I, mode):
+    '''S1's least time by the usual rule: the stream read once (uidx,
+    iidx, r, cache: 16 bytes a rating), the columns read and written
+    once, the biases read once (learned: and written; the learned dot
+    reads the P and Q rows once more), against ~12 f32 operations a
+    rating (2k more for the learned dot) at 67 TFLOP/s.'''
+    nbytes = 16.0 * n + 8.0 * (U + I) + 4.0 * (U + I) * (
+        2 if mode == 'learned' else 1)
+    return roofline_ms(12.0 * n, nbytes)      # (ms, what bounds it)
+
+
+def phase2_serial(device='cuda'):
+    '''S1 (``csrc/serial_funk.cu``) against its plain version on the card:
+    every bias mode and fold-in mask on a 5,000-rating stream at k=16,
+    columns in shared memory and in device memory, bit for bit; then one
+    feature epoch at the ML-100K shape (100,000 ratings, 943 x 1,682,
+    'fixed' as example 2 trains) timed beside its bound, the chain floor
+    and the plain version.'''
+    import torch
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    card = card_line()
+    c = S1_CASE
+    d = s1_inputs(c['U'], c['I'], c['n'], c['k'], 1, device)
+    log('phase 2: S1 against its plain version on the card (%d ratings, '
+        '%d x %d, k=%d; bit for bit)' % (c['n'], c['U'], c['I'], c['k']))
+    cases = [(m, uu, ui, None) for m in sk.BIAS_MODES
+             for uu, ui in ((True, True), (True, False), (False, True))]
+    cases += [(m, True, True, False) for m in sk.BIAS_MODES]
+    worst = 0.0
+    for mode, uu, ui, smem in cases:
+        got = s1_call(sk.serial_epoch, d, 3, mode, uu, ui, smem=smem)
+        want = s1_call(sk.serial_feature_epoch_ref, d, 3, mode, uu, ui)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst = max(worst, err)
+        log('  %-7s users=%d items=%d %s: bit-identical=%s (max abs err '
+            '%.3g, rmse %.6f)' % (mode, uu, ui, 'device memory'
+                                  if smem is False else 'shared memory',
+                                  same, err, float(got[4])))
+        if not same:
+            raise SystemExit('S1 differs from its plain version')
+    # the ML-100K shape: one feature epoch, 'fixed', both sides updated
+    from mfrec_tpu_torch.data import ml100k_like
+    u, i, v = ml100k_like.generate(seed=0)
+    U, I, n = ml100k_like.N_USERS, ml100k_like.N_ITEMS, int(u.shape[0])
+    rng = np.random.default_rng(2)
+    dm = {'uidx': torch.from_numpy(u).to(device),
+          'iidx': torch.from_numpy(i).to(device),
+          'r': torch.from_numpy(v).to(device),
+          'cache': torch.zeros(n, device=device),
+          'P': torch.full((U, 16), 0.1, device=device),
+          'Q': torch.full((I, 16), 0.1, device=device),
+          'bu': torch.from_numpy(rng.normal(0, 0.3, U).astype(
+              np.float32)).to(device),
+          'bi': torch.from_numpy(rng.normal(0, 0.3, I).astype(
+              np.float32)).to(device)}
+    got = s1_call(sk.serial_epoch, dm, 0, 'fixed', True, True)
+    t0 = time.perf_counter()
+    want = s1_call(sk.serial_feature_epoch_ref, dm, 0, 'fixed', True, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+
+    cols = (dm['P'][:, 0].contiguous(), dm['Q'][:, 0].contiguous())
+    bu, bi = dm['bu'].clone(), dm['bi'].clone()
+
+    def call():                  # the launch alone, on the same columns
+        sk.serial_epoch(cols[0], cols[1], dm['cache'], dm['uidx'],
+                        dm['iidx'], dm['r'], 0, 16, 0.1, 0.01, 0.02, 3.53,
+                        bu, bi, 0.005, 0.006, 0.012, 0.004,
+                        bias_mode='fixed')
+
+    ms = timed_ms(call, 10)
+    dev_ms, dev_n = kernel_device_ms(call, 'serial_funk', 10)
+    floor_ms = sk.chain_floor_ms(n)
+    bound, bound_by = s1_bound_ms(n, U, I, 'fixed')
+    log('  ML-100K shape, one feature epoch (%d ratings, %d x %d, fixed): '
+        'bit-identical=%s; %.4f ms (events), %s device (%d of 10 '
+        'launches recorded), plain version %.1f ms; bound %.5f ms (%s), '
+        'chain floor %.4f ms (%d dependent shared-memory loads, measured), '
+        '%.1f ns a rating  [%s]'
+        % (n, U, I, same, ms, ms_or_not(dev_ms), dev_n, plain_ms, bound,
+           bound_by,
+           floor_ms, n, ms * 1e6 / n, card))
+    if not same:
+        raise SystemExit('S1 differs from its plain version at the ML-100K '
+                         'shape')
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, chain_floor_ms=floor_ms,
+                max_abs_err=worst, n=n)
+
+
+def heldout_floor_rmse(train, test, U, I):
+    '''Held-out RMSE of the bias-only predictor fitted on the training
+    split (``tests/test_acceptance_ml100k.py``'s floor): what a model
+    that learns no structure reaches on the test split.'''
+    from mfrec_tpu_torch.tools import bench_data
+    users, items, vals = train
+    _, bu, bi = bench_data.bias_floor_rmse(users, items, vals, U, I)
+    pred = np.clip(vals.mean() + bi[test[:, 1].astype(int)]
+                   + bu[test[:, 0].astype(int)], 1.0, 5.0)
+    return float(np.sqrt(((test[:, 2] - pred) ** 2).mean()))
+
+
+def example2(engine, device, data, cut=None):
+    '''``examples/example2_movielens_100k_sgd.py:44-61`` through the port's
+    public API on ``device``: train (handle_bias=True), the held-out RMSE
+    over the whole test split, P@10, then ``add_user('new-user', items
+    0-9, 5.0)`` and the new user's top-5.  ``cut``: min = max epochs.'''
+    import torch
+    from mfrec_tpu_torch.eval.metrics import precision_recall, \
+        test_predict_rating
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    (users, items, values), u_test = data
+    U, I = int(users.max()) + 1, int(items.max()) + 1
+    params = dict(EX2_PARAMS, engine=engine,
+                  learning_rate=0.2 if engine == 'alternating' else 0.01)
+    if cut is not None:
+        params.update(min_epochs=cut, max_epochs=cut)
+    m = GDRecommender(U, I, params, device=device)
+    m.seed(0)
+    m.set_ratings(users, items, values)
+
+    def sync():
+        if device == 'cuda':
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    m.train(handle_bias=True)
+    sync()
+    train_s = time.perf_counter() - t0
+    hist = [float(x) for x in m.rmse_history]
+    rmse = test_predict_rating(m, u_test, nbr_samples=len(u_test),
+                               predictor='predict_rating_with_bias',
+                               quiet=True)[0]
+    p10 = precision_recall(m, u_test, nbr_recommendations=10,
+                           predictor='predict_rating_with_bias')[0]
+    t0 = time.perf_counter()
+    new_id = m.add_user('new-user', np.arange(10, dtype=np.int32),
+                        np.full(10, 5.0, np.float32))
+    sync()
+    add_ms = (time.perf_counter() - t0) * 1e3
+    ids, scores = m.find_recommended_items(
+        user_index=new_id, nbr_recommendations=5,
+        predictor='predict_rating_with_bias')
+    return dict(train_s=train_s, epochs=len(hist), hist=hist, rmse=rmse,
+                p10=p10, add_ms=add_ms, new_id=new_id, ids=ids,
+                scores=scores, model=m, fold_epochs=len(m.rmse_history))
+
+
+def fused_bench(device='cuda', U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz']):
+    '''The fused tier at bench.py's operating point on the ML-10M shape of
+    phase 4: the epoch by phase 4's difference quotient (3 blocks of a 2-
+    and a 5-epoch run after a 1-epoch warm-up), every RMSE against the
+    bias-only floor, one epoch's device launches and idle share
+    (torch.profiler against the CUDA-event epoch).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.tools import bench_data
+    card = card_line()
+    fb = FUSED_BENCH
+    t0 = time.perf_counter()
+    users, items, vals = unique_stream(U, I, nnz)
+    floor, bu, bi = bench_data.bias_floor_rmse(users, items, vals, U, I)
+    ub, ib, rb, mb = sgd_mf.batch_ratings(users, items, vals, fb['B'],
+                                          seed=0)
+    plan = sgd_mf.fused_plan(ub, ib, device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    ub, ib, rb, mb = t(ub), t(ib), t(rb), t(mb)
+    rng = np.random.default_rng(0)
+    st = sgd_mf.MFState(
+        P=t(rng.normal(0, fb['init'], (U, fb['k'])).astype(np.float32)),
+        Q=t(rng.normal(0, fb['init'], (I, fb['k'])).astype(np.float32)),
+        bu=t(bu), bi=t(bi), mu=torch.tensor(float(vals.mean())))
+    epoch = sgd_mf.make_fused_epoch(fb['B'], lr=fb['lr'], K=fb['K'],
+                                    bias_mode='fixed')
+    log('phase 9(d): the fused tier at bench.py\'s operating point: %d x '
+        '%d, %d ratings, %d batches of %d, rank %d, lr %g, K %g, fixed '
+        'biases; bias-only floor %.4f (%.1f s to build the data and the '
+        'scatter plans)' % (U, I, vals.shape[0], ub.shape[0], fb['B'],
+                            fb['k'], fb['lr'], fb['K'], floor,
+                            time.perf_counter() - t0))
+    hist = []
+
+    def run(epochs):
+        for _ in range(epochs):
+            _, rmse = epoch(st, ub, ib, rb, mb, plan=plan)
+            hist.append(float(rmse))
+
+    res = epochs_timed(run, lambda: hist[-5:], card, device)
+    epoch_ms, launches, idle = None, None, None
+    if device == 'cuda':
+        # one epoch: CUDA events, then under the profiler for its launches
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run(1)
+        b.record()
+        b.synchronize()
+        epoch_ms = a.elapsed_time(b)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(1)
+            torch.cuda.synchronize()
+        launches = sum(n for n, _ in device_kernels(prof).values())
+        idle = idle_share(device_busy_ms(prof), epoch_ms)
+    log('  epoch %.4f s (median of 3), %s ms by events; %s device '
+        'launches an epoch (%s a batch), idle share %s; last rmse %.4f vs '
+        'floor %.4f  [%s]' % (res['epoch_s'], epoch_ms, launches,
+                              None if launches is None
+                              else launches / float(ub.shape[0]),
+                              'not measured' if idle is None
+                              else '%.3f' % idle, hist[-1], floor, card))
+    if not all(np.isfinite(hist)):
+        raise SystemExit('non-finite fused-tier RMSE: %s' % hist)
+    if not hist[-1] < floor:
+        raise SystemExit('the fused tier does not beat the bias-only floor')
+    return dict(epoch_s=res['epoch_s'], epoch_s_blocks=res['epoch_s_blocks'],
+                epoch_ms_events=epoch_ms, launches_per_epoch=launches,
+                idle_share=idle, rmse=hist[-1], floor=floor,
+                state=st, data=(users, items, vals))
+
+
+def foldin_full_width(fb, devices=('cuda', 'cpu')):
+    '''``add_user`` with 20 ratings on a rank-64 ML-10M-shape model (the
+    fused tier's from (d), handed over by ``interop.from_numpy``), timed
+    a call, the new row held to the same fold-in on a CPU model from the
+    same state (the plain version: bit for bit).'''
+    import torch
+    from mfrec_tpu_torch import interop
+    card = card_line()
+    st = fb['state']
+    users, items, vals = fb['data']
+    P, Q = st.P.cpu().numpy(), st.Q.cpu().numpy()
+    bu, bi = st.bu.cpu().numpy(), st.bi.cpu().numpy()
+    params = dict(EX2_PARAMS, nbr_features=P.shape[1], learning_rate=0.01)
+    rng = np.random.default_rng(4)
+    new_items = [rng.choice(Q.shape[0], 20, replace=False).astype(np.int32)
+                 for _ in range(3)]
+    new_vals = [rng.integers(1, 6, 20).astype(np.float32) for _ in range(3)]
+    rows, times, epochs = {}, [], []
+    on, off = devices
+    for d in devices:
+        m = interop.from_numpy(P, Q, bu, bi, float(vals.mean()),
+                               (users, items, vals), device=d,
+                               parameters=params)
+        m.seed(7)
+        rows[d] = []
+        for j in range(3 if d == on else 1):
+            if d == 'cuda':
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_id = m.add_user('fold-%d' % j, new_items[j], new_vals[j])
+            if d == 'cuda':
+                torch.cuda.synchronize()
+            if d == on:
+                times.append((time.perf_counter() - t0) * 1e3)
+                epochs.append(len(m.rmse_history))
+            rows[d].append(m.P[new_id].copy())
+        if d == 'cuda':
+            split = s1_epoch_cost(m, new_id, new_items[0], new_vals[0])
+    same = np.array_equal(rows[on][0], rows[off][0])
+    err = float(np.abs(rows[on][0] - rows[off][0]).max())
+    log('phase 9(e): add_user with 20 ratings on the rank-%d ML-10M-shape '
+        'model: %s ms a call (3 calls; %s serial epochs each), the new row '
+        'against the CPU plain path from the same state bit-identical=%s '
+        '(max abs err %.3g)  [%s]'
+        % (P.shape[1], ' '.join('%.1f' % x for x in times),
+           ' '.join(str(e) for e in epochs), same, err, card))
+    if on == 'cuda':
+        log('  one serial epoch of that fold-in: %.1f us on the host clock '
+            'with its rmse read (%.1f us to enqueue the launch alone), %s '
+            'of device time; so %.0f of a call\'s %.0f ms are epochs'
+            % (split['epoch_us'], split['enqueue_us'],
+               ms_or_not(split['device_ms']),
+               split['epoch_us'] * epochs[-1] / 1e3, times[-1]))
+    if not same or not np.isfinite(rows[on][0]).all():
+        raise SystemExit('the fold-in on the card differs from the CPU '
+                         'plain path')
+    return dict(add_ms=float(np.median(times)), add_ms_all=times,
+                epochs=epochs, **({'split': split} if on == 'cuda' else {}))
+
+
+def s1_epoch_cost(m, user, items, vals, calls=200):
+    '''What one serial epoch of a fold-in costs on the card: ``calls``
+    epochs of the fold-in's stream through ``serial_epoch``, each with
+    its rmse read as the convergence rule reads it (host clock), the
+    same without the read (the enqueue), and one epoch's device time.'''
+    import torch
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    dev = m.device
+    k = m.dimensionality
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    uidx = t(np.full(len(items), user), np.int32)
+    iidx, r = t(items, np.int32), t(vals, np.float32)
+    cache = torch.zeros(len(items), device=dev)
+    pf = t(m.P[:, 0], np.float32)
+    qf = t(m.Q[:, 0], np.float32)
+    bu, bi = t(m.users_bias, np.float32), t(m.items_bias, np.float32)
+
+    def one():
+        return sk.serial_epoch(pf, qf, cache, uidx, iidx, r, 0, k, 0.1,
+                               0.01, 0.02, 3.5, bu, bi, 0.0, 0.0, 0.0, 0.0,
+                               bias_mode='fixed', update_items=False)[4]
+
+    float(one())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        float(one())
+    epoch_us = (time.perf_counter() - t0) * 1e6 / calls
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        one()
+    enqueue_us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return dict(epoch_us=epoch_us, enqueue_us=enqueue_us,
+                device_ms=kernel_device_ms(one, 'serial_funk', 20)[0])
+
+
+def fn_and_sweep(data, devices=('cuda', 'cpu')):
+    '''``FNRecommender(engine='fused')`` at the ML-100K shape and
+    ``optimize_regularization_vmapped`` over three K, each on the card
+    against the same call on the CPU.'''
+    from mfrec_tpu_torch.eval.sweep import optimize_regularization_vmapped
+    from mfrec_tpu_torch.models.fn import FNRecommender
+    card = card_line()
+    (users, items, values), u_test = data
+    U, I = int(users.max()) + 1, int(items.max()) + 1
+    on, off = devices
+    out = {}
+    for d in devices:
+        t0 = time.perf_counter()
+        m = FNRecommender(U, I, FN_FUSED_PARAMS, device=d)
+        m.seed(0)
+        m.set_ratings(users, items, values)
+        m.train()
+        out[d] = (np.asarray(m.rmse_history), m.P.copy(),
+                  time.perf_counter() - t0)
+    herr = float(np.abs(out[on][0] - out[off][0]).max())
+    perr = float(np.abs(out[on][1] - out[off][1]).max())
+    log('phase 9(f): FNRecommender(engine=\'fused\') at %d x %d, %d '
+        'features, batch %d, %d epochs: rmse %s on the card (%.2f s) vs %s '
+        'on the CPU (%.2f s); max diff rmse %.3g, profiles %.3g  [%s]'
+        % (U, I, FN_FUSED_PARAMS['nbr_features'],
+           FN_FUSED_PARAMS['batch_size'], FN_FUSED_PARAMS['nbr_epochs'],
+           ' '.join('%.5f' % x for x in out[on][0]), out[on][2],
+           ' '.join('%.5f' % x for x in out[off][0]), out[off][2], herr,
+           perr, card))
+    if not (np.isfinite(out[on][0]).all() and herr <= FN_FUSED_TOL
+            and perr <= FN_FUSED_TOL):
+        raise SystemExit('the FN fused tier on the card disagrees with the '
+                         'CPU')
+    regs = [0.005, 0.02, 0.1]
+    sw = {}
+    for d in devices:
+        t0 = time.perf_counter()
+        sw[d] = (optimize_regularization_vmapped(
+            users, items, values, u_test, regs, rank=16, epochs=10,
+            device=d)[1], time.perf_counter() - t0)
+    serr = float(np.abs(sw[on][0] - sw[off][0]).max())
+    log('  optimize_regularization_vmapped(K=%s, rank 16, 10 epochs): '
+        'held-out rmse %s on the card (%.2f s) vs %s on the CPU (%.2f s), '
+        'max diff %.3g  [%s]' % (regs, ' '.join(
+            '%.5f' % x for x in sw[on][0]), sw[on][1], ' '.join(
+            '%.5f' % x for x in sw[off][0]), sw[off][1], serr, card))
+    if not (np.isfinite(sw[on][0]).all() and serr <= FN_FUSED_TOL):
+        raise SystemExit('the regularization sweep on the card disagrees '
+                         'with the CPU')
+    return dict(fn_rmse=out[on][0].tolist(), sweep=sw[on][0].tolist())
+
+
+def phase9(device='cuda', reduced=None):
+    '''The reference's main workflow on the card at full width
+    (``examples/example2_movielens_100k_sgd.py``): (a) example 2 as
+    written (engine 'fused') against the same workflow on the CPU; (b)
+    'funk_fused', 'alternating' and (cut) 'funk'; (c) the fused and
+    funk-fused tiers repeated bit for bit; (d) the fused tier at
+    bench.py's ML-10M operating point; (e) fold-in on a rank-64
+    ML-10M-shape model; (f) FN's fused tier and the regularization
+    sweep against the CPU.  The launch counts are set to 0 before (a)
+    and (b), the workflow this phase drives, and read after them.'''
+    from mfrec_tpu_torch.data import ml100k_like
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.serial_kernel import serial_epoch
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    card = card_line()
+    t_phase = time.perf_counter()
+    data = ml100k_like.u1_split(seed=0)
+    (users, items, values), u_test = data
+    U, I = int(users.max()) + 1, int(items.max()) + 1
+    floor = heldout_floor_rmse(data[0], u_test, U, I)
+    log('phase 9: example 2\'s workflow on the card: the synthetic ML-100K '
+        'u1 split (%d x %d, %d train / %d test), 16 features; held-out '
+        'bias-only floor %.4f' % (U, I, users.shape[0], u_test.shape[0],
+                                  floor))
+    zero_launch_counts()
+    runs = {}
+    for engine, cut in (('fused', None), ('funk_fused', None),
+                        ('alternating', None), ('funk', FUNK_CUT)):
+        r = example2(engine, device, data, cut=cut)
+        runs[engine] = r
+        log('  (%s) %-11s trained %d epochs%s in %.2f s (train rmse %.4f), '
+            'held-out rmse %.4f, P@10 %.4f; add_user %.1f ms (%d serial '
+            'epochs), top-5 %s  [%s]'
+            % ('a' if engine == 'fused' else 'b', engine, r['epochs'],
+               '' if cut is None else ' (cut: min = max = %d a feature)'
+               % cut, r['train_s'], r['hist'][-1], r['rmse'], r['p10'],
+               r['add_ms'], r['fold_epochs'], r['ids'], card))
+        if not (np.isfinite(r['hist']).all() and np.isfinite(r['rmse'])):
+            raise SystemExit('non-finite RMSE from engine %r' % engine)
+        if not r['rmse'] < floor:
+            raise SystemExit('engine %r: held-out rmse %.4f does not beat '
+                             'the bias-only floor %.4f'
+                             % (engine, r['rmse'], floor))
+    launches = {'s1': serial_epoch.launches,
+                'k3': topn_scores_kernel.launches, 'k1': half_pass.launches}
+    log('  launches over (a) and (b): S1 %d, K3 %d, K1 %d'
+        % (launches['s1'], launches['k3'], launches['k1']))
+    if device == 'cuda' and min(launches.values()) == 0:
+        raise SystemExit('the workflow never launched a kernel of its path: '
+                         '%s' % launches)
+    a = runs['fused']
+    cpu = example2('fused', 'cpu', data)
+    sdiff = max(abs(x - y) for x, y in zip(a['scores'], cpu['scores']))
+    log('  (a) the same workflow on the CPU: %d epochs, held-out rmse %.4f, '
+        'P@10 %.4f, top-5 %s; card - CPU: rmse %.3g, P@10 %.3g, scores %.3g'
+        % (cpu['epochs'], cpu['rmse'], cpu['p10'], cpu['ids'],
+           a['rmse'] - cpu['rmse'], a['p10'] - cpu['p10'], sdiff))
+    if not (abs(a['rmse'] - cpu['rmse']) <= EX2_RMSE_TOL
+            and abs(a['p10'] - cpu['p10']) <= EX2_P10_TOL
+            and sorted(a['ids']) == sorted(cpu['ids'])
+            and sdiff <= EX2_SCORE_TOL):
+        raise SystemExit('example 2 on the card disagrees with the CPU')
+    # (c) determinism: two runs from one seed, bit for bit
+    for engine in ('fused', 'funk_fused'):
+        m1 = example2(engine, device, data, cut=5)['model']
+        m2 = example2(engine, device, data, cut=5)['model']
+        same = np.array_equal(m1.P, m2.P) and np.array_equal(m1.Q, m2.Q)
+        log('  (c) %s trained twice from one seed (5 epochs%s): P and Q '
+            'bit-identical=%s' % (engine, ' a feature' if engine ==
+                                  'funk_fused' else '', same))
+        if not same:
+            raise SystemExit('the %s tier does not repeat on the card'
+                             % engine)
+    devices = (device, 'cpu')
+    fb = fused_bench(device, *(reduced or (ML10M['U'], ML10M['I'],
+                                           ML10M['nnz'])))
+    fold = foldin_full_width(fb, devices)
+    fns = fn_and_sweep(data, devices)
+    log('  phase 9 in %.1f s  [%s]' % (time.perf_counter() - t_phase, card))
+    return dict(runs={e: {k: v for k, v in r.items() if k != 'model'}
+                      for e, r in runs.items()},
+                launches=launches, floor=floor, fused=dict(
+                    (k, v) for k, v in fb.items()
+                    if k not in ('state', 'data')), fold=fold, fn=fns)
+
+
+def serial_entry(s1, p9):
+    '''S1's entry of the kernels line: the ML-100K-shape feature epoch of
+    phase 2, the launches of phase 9's workflow.'''
+    if not s1:
+        return []
+    return [{
+        'name': 'serial_funk (S1, serial Funk feature epoch; no TPU '
+                'counterpart)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/serial_funk.cu',
+        'replaces': 'mfrec_tpu/ops/sgd_mf.py:109 (serial_feature_epoch, a '
+                    'lax.fori_loop outside any Pallas kernel)',
+        'launches': p9.get('launches', {}).get('s1'),
+        'max_abs_err': s1['max_abs_err'],
+        'ms': s1['ms'], 'plain_ms': s1['plain_ms'],
+        'bound_ms': s1['bound_ms'], 'bound_by': s1['bound_by'],
+        'library_ms': None,
+        'shape': 'one feature epoch at the ML-100K shape: 100000 ratings, '
+                 '943 x 1682, fixed biases',
+        'device_ms': s1['device_ms'],
+        'chain_floor_ms': s1['chain_floor_ms'],
+        'add_user_ms_example2': p9.get('runs', {}).get('fused', {}).get(
+            'add_ms'),
+        'add_user_ms_rank64': p9.get('fold', {}).get('add_ms'),
+        'foldin_epoch_us_rank64': p9.get('fold', {}).get('split', {}).get(
+            'epoch_us')}]
+
+
 def ab_layouts(path):
     '''The W=128 ML-10M user and item layouts and the most-rated item,
     built once by the process that starts the A/B and loaded by each
@@ -3604,7 +4213,7 @@ def ab_main(mode, checkouts, child):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
-    ap.add_argument('--phases', default='12345678',
+    ap.add_argument('--phases', default='123456789',
                     help='which phases to run (default: all)')
     ap.add_argument('--ab', choices=AB_MODES,
                     help='instead of the phases, time K1, K3, K4 or the ALS '
@@ -3627,15 +4236,16 @@ def main(argv=None):
         return ab_main(args.ab, args.checkouts, args.ab_child)
     if '1' in args.phases:
         phase1()
-    k3_recs, (k1_recs, k1_time), k2_recs, k4 = phase2() \
+    k3_recs, (k1_recs, k1_time), k2_recs, k4, s1 = phase2() \
         if '2' in args.phases else ([], ([], {}), {'pcg': [], 'bucket': []},
-                                    {})
+                                    {}, {})
     launches, worst = phase3() if '3' in args.phases else (None, 0.0)
     train = phase4() if '4' in args.phases else {}
     als = phase5() if '5' in args.phases else {}
     svdpp = phase6() if '6' in args.phases else {}
     fn = phase7() if '7' in args.phases else {}
     p8 = phase8() if '8' in args.phases else {}
+    p9 = phase9() if '9' in args.phases else {}
     if k3_recs:
         main1 = k1_recs[0]
         print(json.dumps({'kernels': k3_entry(k3_recs, launches, worst) + [{
@@ -3660,7 +4270,7 @@ def main(argv=None):
             'epoch_s': train.get('epoch_s'),
             'launches_phase8': p8.get('launches', {}).get('k1')}]
             + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)
-            + probe_entries(p8)}))
+            + probe_entries(p8) + serial_entry(s1, p9)}))
     log(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,7 +11,11 @@ Both entry points take numpy only, so neither needs jax installed:
 
 Each returns a port model of ``model_class`` (``GDRecommender`` by
 default; a JAX checkpoint does not record its class, so the caller names
-it, e.g. ``WRMFRecommender``) that computes what the JAX model computes.
+it, e.g. ``WRMFRecommender``) that computes what the JAX model computes:
+P, Q, the biases and ``overall_bias``, the label indexes (so that
+``add_user`` appends the same new id), and where given
+``components_mean`` and FN's X and Y (a checkpoint carries X as
+``extra_X`` and Y as ``items_feedback``).
 '''
 from __future__ import annotations
 
@@ -33,13 +37,16 @@ def load_jax_state(path, device='cuda', model_class=GDRecommender):
 
 def from_numpy(P, Q, users_bias, items_bias, overall_bias, ratings,
                labels=None, device='cuda', parameters=None,
-               model_class=GDRecommender):
+               model_class=GDRecommender, components_mean=None, X=None,
+               Y=None):
     '''A ``model_class`` model on ``device`` from arrays: ``P`` [users, k],
     ``Q`` [items, k], the biases (None for none), ``ratings`` as a
     ``(users, items, values)`` triple, optional ``labels``
-    ``{'users': [...], 'items': [...]}``, and optional ``parameters`` in
+    ``{'users': [...], 'items': [...]}``, optional ``parameters`` in
     ``PARAMETERS_INDEX`` names (a JAX model's settings, so that the port
-    model trains on as the JAX model would).'''
+    model trains on as the JAX model would), and optional
+    ``components_mean`` [k] (the GD model's similarity centring) and
+    ``X``, ``Y`` [items, k] (FN's neighbourhood factors).'''
     P = np.ascontiguousarray(P, np.float32)
     Q = np.ascontiguousarray(Q, np.float32)
     if P.ndim != 2 or Q.ndim != 2 or P.shape[1] != Q.shape[1]:
@@ -56,6 +63,11 @@ def from_numpy(P, Q, users_bias, items_bias, overall_bias, ratings,
         model.items_bias = np.asarray(items_bias, np.float32)
     model.overall_bias = None if overall_bias is None else float(overall_bias)
     model.set_ratings(*ratings)
+    if components_mean is not None:
+        model.components_mean = np.asarray(components_mean, np.float32)
+    for name, arr in (('X', X), ('Y', Y)):
+        if arr is not None:
+            setattr(model, name, np.ascontiguousarray(arr, np.float32))
     if labels:
         model.users.labels = list(labels['users'])
         model.items.labels = list(labels['items'])

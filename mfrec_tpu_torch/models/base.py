@@ -169,6 +169,31 @@ class BaseRecommender(object):
         self.users.rebuild()
         self.items.rebuild()
 
+    def add_user(self, label):
+        '''Append a user (no ratings); returns its index.'''
+        new_id = self.users.add(label)
+        self.ratings.grow(nbr_users=new_id + 1)
+        return new_id
+
+    def add_item(self, label):
+        '''Append an item (no ratings); returns its index.'''
+        new_id = self.items.add(label)
+        self.ratings.grow(nbr_items=new_id + 1)
+        return new_id
+
+    def get_ratings(self, randomize_order=False, seed=None):
+        '''The ratings as (ratings_index [N, 2] int32, ratings [N]
+        float64), shuffled from ``self.rng`` (or ``seed``) on request
+        (reference base.py:1115-1131).'''
+        if randomize_order:
+            if seed is None:
+                seed = int(self.rng.integers(2 ** 31))
+            u, i, v = self.ratings.shuffled(seed)
+        else:
+            u, i, v = self.ratings.coo()
+        idx = np.stack([u, i], axis=1).astype(np.int32)
+        return idx, v.astype(np.float64)
+
     def initialize_rated_feedback(self):
         '''Build the (rated [N,2], per-user (seek, span)) arrays consumed by
         the SVD++ path (reference base.py:228-263).'''
@@ -181,6 +206,10 @@ class BaseRecommender(object):
         seek[empty] = -1
         span[empty] = -1
         self.feedback_hash = np.stack([seek, span], 1)
+
+    def initialize_bias(self):
+        self.items_bias = np.zeros(self.nbr_items, np.float32)
+        self.users_bias = np.zeros(self.nbr_users, np.float32)
 
     # -------------------------------------------------------------- biases
     def compute_overall_avg(self):
@@ -231,6 +260,17 @@ class BaseRecommender(object):
         if not similarities_output:
             return [int(x) for x in ids]
         return [int(x) for x in ids], [float(x) for x in sims]
+
+    def similar_users(self, user_index, nbr_recommendations=2,
+                      similarity_threshold=False, similarities_output=False,
+                      method='pearson'):
+        '''Nearest users in factor space (reference base.py:1294-1347).'''
+        if self.P is None:
+            raise Error('No user factors: train the model first')
+        F = np.asarray(self.P, np.float32)[:, :self.dimensionality]
+        return self._similar_topk(F, int(user_index), nbr_recommendations,
+                                  similarity_threshold, similarities_output,
+                                  method)
 
     def similar_items(self, item_index, nbr_recommendations=2,
                       similarity_threshold=False, similarities_output=False,

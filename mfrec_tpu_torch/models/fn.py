@@ -5,10 +5,13 @@ model.  Port of ``mfrec_tpu/models/fn.py``:
     r_hat(u,i) = mu + b_u + b_i
                + q_i . |R(u)|^-1/2 sum_{j in R(u)} [(r_uj - b_uj) x_j + y_j]
 
-trained on the sorted-window alternating tier
-(``ops.fn.make_fn_alternating_epoch``) on the model's device: a CUDA
-model through K1 (``csrc/half_pass.cu``) and K4 (``csrc/window_agg.cu``),
-a CPU model through the XLA branch's math in plain torch.  The parameter
+trained on the model's device: with ``engine='auto'`` / ``'alternating'``
+on the sorted-window alternating tier (``ops.fn.make_fn_alternating_epoch``),
+a CUDA model through K1 (``csrc/half_pass.cu``) and K4
+(``csrc/window_agg.cu``), a CPU model through the XLA branch's math in
+plain torch; with ``engine='fused'`` on the per-batch scatter tier
+(``ops.fn.make_fn_epoch``, the JAX package's oracle-parity tier), plain
+torch ops with fixed-order scatter-adds.  The parameter
 names, defaults and ``DefaultRate`` sentinels are the JAX model's
 (``PARAMETERS_INDEX``: ``regularization_users`` -> K_users regularizes
 y, ``regularization_items`` -> K_items regularizes q and x,
@@ -18,8 +21,8 @@ After ``train()`` the per-user profiles a_u are materialized into
 ``self.P``, so retrieval (K3 on a CUDA model) serves an FN model
 unchanged: prediction is mu + b_u + b_i + P[u].Q[i].
 
-``engine='auto'`` means ``'alternating'``; the per-batch scatter tier
-(``'fused'``) and the sharded engine are not ported yet and raise.
+``engine='auto'`` means ``'alternating'``; the sharded engine is not
+ported yet and raises.
 '''
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ from mfrec_tpu_torch.ops import fn as fn_ops
 from mfrec_tpu_torch.ops import sgd_mf
 
 _UNPORTED_ENGINES = {
-    'fused': 'queue 1 item 6 (the other GD engines: the per-batch FN tier)',
     'alternating_sharded': 'queue 1 item 9 (multi-device engines)',
 }
 
@@ -97,15 +99,21 @@ class FNRecommender(MFRecommender):
     # ------------------------------------------------------------- training
     def train(self, initialize_model=True, verbose=False):
         '''Train the factorized-neighborhood objective on the sorted-window
-        alternating tier (q and x regularized by K_items, y by K_users).'''
+        alternating tier (``engine='auto'``/``'alternating'``) or the
+        per-batch scatter tier (``'fused'``); q and x regularized by
+        K_items, y by K_users.'''
         engine = 'alternating' if self.engine == 'auto' else self.engine
         if engine in _UNPORTED_ENGINES:
             raise NotImplementedError(
                 'engine %r is not ported yet (ROADMAP %s); use '
-                "engine='alternating'" % (engine, _UNPORTED_ENGINES[engine]))
-        if engine != 'alternating':
+                "engine='alternating' or 'fused'"
+                % (engine, _UNPORTED_ENGINES[engine]))
+        if engine == 'alternating':
+            self._train_alternating(initialize_model, verbose)
+        elif engine == 'fused':
+            self._train_fused(initialize_model, verbose)
+        else:
             raise Error('unknown engine %r' % (self.engine,))
-        self._train_alternating(initialize_model, verbose)
 
     def _fn_lrs(self, default):
         '''Engine rates: any plain-float assignment (even of the reference
@@ -182,6 +190,34 @@ class FNRecommender(MFRecommender):
             K_y=self.K_users, lo=self.min_rating, hi=self.max_rating,
             inner_steps=self.inner_steps, use_kernel=use_kernel)
         return epoch, state, (mu, p_layout, q_layout, nrm_rows)
+
+    def _train_fused(self, initialize_model=True, verbose=False):
+        '''Per-batch scatter-add tier (``ops.fn.make_fn_epoch``;
+        ``mfrec_tpu/models/fn.py:177-201``) at the per-sample reference
+        rates, on the model's device.'''
+        uidx, iidx, vals = self.ratings.shuffled(
+            int(self.rng.integers(2 ** 31)))
+        self.compute_overall_avg()
+        state = self._init_or_resume(initialize_model)
+        lists = fn_ops.padded_user_lists(self.ratings)
+        ub, ib, rb, mb = sgd_mf.batch_ratings(uidx, iidx, vals,
+                                              self.batch_size)
+        plan = fn_ops.fn_plan(ub, ib, lists[0], lists[2], mb, self.device)
+        fl, fv, fm, ub, ib, rb, mb = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (*lists, ub, ib, rb, mb))
+        lr, lr_bu, lr_bi = self._fn_lrs(0.01)   # reference per-sample rates
+        epoch = fn_ops.make_fn_epoch(
+            lr, lr_bu, lr_bi, self.K_items, self.K_bias, self.K_bias,
+            K_y=self.K_users, lo=self.min_rating, hi=self.max_rating)
+        driver = ConvergenceDriver(1, self.nbr_epochs, self.min_improvement)
+        state = driver.run(
+            lambda s: epoch(s, ub, ib, rb, mb, fl, fv, fm, plan=plan), state)
+        self.rmse_history = driver.history
+        if verbose:
+            for e, r in enumerate(driver.history):
+                self.logger.info('epoch %d rmse %.5f', e, r)
+        self._materialize(state)
 
     def _train_alternating(self, initialize_model=True, verbose=False):
         '''Sorted-window alternating tier: profile aggregation, both

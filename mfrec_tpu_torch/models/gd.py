@@ -2,26 +2,39 @@
 GDRecommender — Funk/BellKor SGD matrix factorization.
 
 Port of ``mfrec_tpu/models/gd.py``: the constructor with the reference
-parameter names and defaults (``PARAMETERS_INDEX``), training on the
-single-device sorted-window alternating engine, the SVD++ tier, the
-predictors and ``predict_batch``.
+parameter names and defaults (``PARAMETERS_INDEX``), the single-device
+training engines, the SVD++ tier, fold-in, the predictors,
+``predict_batch`` and the GD similarity overrides.
 
-Training (``train``/``feature_training``, ``feature_training_bias``)
-runs ``ops.sgd_mf.make_alternating_epoch`` on the model's device: a CUDA
-model through the hand-written K1 kernel (``csrc/half_pass.cu``), a CPU
-model through the XLA branch's math in plain torch -- the counterpart of
-the JAX model's ``use_pallas_full = backend != 'cpu'``.
+Engines, on the model's device:
+
+* ``engine='auto'`` / ``'alternating'``: the sorted-window alternating
+  epochs (``ops.sgd_mf.make_alternating_epoch``), on a CUDA model through
+  the hand-written K1 kernel (``csrc/half_pass.cu``), on a CPU model
+  through the XLA branch's math in plain torch -- the counterpart of the
+  JAX model's ``use_pallas_full = backend != 'cpu'``;
+* ``engine='fused'``: all-features mini-batch SGD
+  (``ops.sgd_mf.make_fused_epoch``), plain torch ops with fixed-order
+  scatter-adds, so a CUDA run repeats bit for bit;
+* ``engine='funk'``: the reference's feature-by-feature loop, exact
+  (``ops.sgd_mf.serial_feature_epoch``: the hand-written S1 kernel,
+  ``csrc/serial_funk.cu``, on a CUDA model); fold-in (``add_user``,
+  ``retrain_user``...) and ``feature_training2`` / ``_dev`` /
+  ``_online_prototype`` run it too;
+* ``engine='funk_fused'``: the same schedule over mini-batches
+  (``make_funk_fused_feature_epoch`` / ``_learned_epoch``).
+
 ``feature_training_implicit`` (SVD++) runs
-``ops.sgd_mf.make_alternating_implicit_epoch`` the same way, its
-aggregation phases through K4 (``csrc/window_agg.cu``) on a CUDA model.
-The factors stay on the device across epochs (one host sync per epoch,
-the RMSE the convergence rule reads) and come back as numpy at the end,
-so serving works on a model the port trained.
+``ops.sgd_mf.make_alternating_implicit_epoch``, its aggregation phases
+through K4 (``csrc/window_agg.cu``) on a CUDA model.  The factors stay on
+the device across epochs (one host sync per epoch, the RMSE the
+convergence rule reads) and come back as numpy at the end.
 
 ``engine='auto'`` means ``'alternating'``: a port model lives on one
 explicit device, where the JAX model picks ``alternating_sharded`` when
-``len(jax.devices()) > 1``.  The other engines and ``resilience > 0`` are
-not ported yet and raise.
+``len(jax.devices()) > 1``.  The multi-device engines (``'dsgd'``,
+``'alternating_sharded'``, ``'alternating_ring'``) and ``resilience > 0``
+are not ported yet and raise.
 '''
 from __future__ import annotations
 
@@ -32,13 +45,12 @@ from mfrec_tpu_torch.engine.trainer import ConvergenceDriver
 from mfrec_tpu_torch.models.base import DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.ops import sgd_mf
+from mfrec_tpu_torch.ops import similarity as sim_ops
 
 # engines of the JAX model that the port does not have yet -> ROADMAP item
 _UNPORTED_ENGINES = {
-    'funk': 'queue 1 item 6 (the other GD engines)',
-    'funk_fused': 'queue 1 item 6 (the other GD engines)',
-    'fused': 'queue 1 item 6 (the other GD engines)',
-    'dsgd': 'queue 1 item 6 (the other GD engines)',
+    'dsgd': 'queue 1 item 9 (multi-device engines: ring DSGD over a '
+            'device mesh)',
     'alternating_sharded': 'queue 1 item 9 (multi-device engines)',
     'alternating_ring': 'queue 1 item 9 (multi-device engines)',
 }
@@ -138,6 +150,21 @@ class GDRecommender(MFRecommender):
     def get_rmse_history(self):
         return np.asarray(self.rmse_history)
 
+    def set_ratings_iterator(self, iterator):
+        '''Ingest from an external iterator (e.g. a DB cursor) of
+        (user_index, item_index, value) rows, drained into the ratings
+        store (``mfrec_tpu/models/gd.py:199-205``).'''
+        for row in iterator:
+            self.ratings.set(int(row[0]), int(row[1]), float(row[2]))
+
+    def feature_training_dev(self, initialize_model=True, probe=None,
+                             verbose=False):
+        '''Funk training returning the per-epoch rmse trace (reference
+        gradient_descent.py:577-599).'''
+        self._init_factors(initialize_model, sequential=True)
+        self._run_funk('none', verbose=verbose)
+        return np.asarray(self.rmse_history)
+
     # feature-sequential tiers: the reference constant init is both
     # correct and load-bearing there (trailing-term estimates)
     _SEQUENTIAL_ENGINES = ('funk', 'funk_fused')
@@ -195,6 +222,147 @@ class GDRecommender(MFRecommender):
             P=t(self.P), Q=t(self.Q), bu=t(bu), bi=t(bi),
             mu=torch.tensor(np.float32(
                 mu if mu is not None else (self.overall_bias or 0.0))))
+
+    def _writeback(self, state, with_bias=False):
+        '''The state's P, Q (and biases) back as numpy.'''
+        self.P = _host(state.P, self.nbr_users)
+        self.Q = _host(state.Q, self.nbr_items)
+        if with_bias:
+            self.users_bias = _host(state.bu, self.nbr_users)
+            self.items_bias = _host(state.bi, self.nbr_items)
+
+    def _batched(self, uidx, iidx, vals, seed=None):
+        '''``batch_ratings`` on the host, then the batches and their
+        fixed-order scatter plans on the model's device.'''
+        ub, ib, rb, mb = sgd_mf.batch_ratings(uidx, iidx, vals,
+                                              self.batch_size, seed=seed)
+        plan = sgd_mf.fused_plan(ub, ib, self.device)
+        ub, ib, rb, mb = (torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in (ub, ib, rb, mb))
+        return ub, ib, rb, mb, plan
+
+    # ------------------------------------------------------- fused engine
+    def _run_fused(self, bias_mode, verbose=False, ratings=None, seed=None):
+        '''All-features mini-batch epochs (``ops.sgd_mf.make_fused_epoch``)
+        under the convergence driver, at the per-sample reference rates
+        (``mfrec_tpu/models/gd.py:288-312``).'''
+        if ratings is None:
+            uidx, iidx, vals = self.ratings.coo()
+        else:
+            uidx, iidx, vals = ratings
+        ub, ib, rb, mb, plan = self._batched(
+            uidx, iidx, vals,
+            seed=seed if seed is not None else int(self.rng.integers(2**31)))
+        epoch = sgd_mf.make_fused_epoch(
+            self.batch_size, float(self.learning_rate), self.K,
+            lr_bu=float(self.learning_rate_users),
+            lr_bi=float(self.learning_rate_items), K_bu=self.K2,
+            K_bi=self.K3, bias_mode=bias_mode, lo=self.min_rating,
+            hi=self.max_rating)
+        state = self._state(with_bias=(bias_mode != 'none'))
+        driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
+                                   self.min_improvement)
+        state = driver.run(lambda st: epoch(st, ub, ib, rb, mb, plan=plan),
+                           state)
+        self.rmse_history = driver.history
+        if verbose:
+            for e, r in enumerate(driver.history):
+                self.logger.info('epoch %d rmse %.5f', e, r)
+        self._writeback(state, with_bias=(bias_mode == 'learned'))
+
+    # -------------------------------------------------- funk_fused engine
+    def _converge_feature(self, epoch, f, verbose):
+        '''The funk tiers' per-feature rule (``mfrec_tpu/models/gd.py:
+        346-357``): ``epoch()`` runs one epoch of feature ``f`` and
+        returns its rmse (a device scalar, read once an epoch), until the
+        feature stops improving.'''
+        rmse, ep = 2.0, 0
+        rmse_last = rmse
+        while (ep < self.min_epochs
+               or rmse <= rmse_last - self.min_improvement):
+            if ep >= self.max_epochs:
+                break
+            rmse_last = rmse
+            rmse = float(epoch())
+            self.rmse_history.append(rmse)
+            ep += 1
+        if verbose:
+            self.logger.info('feature %d epochs %d rmse %.5f', f, ep, rmse)
+
+    def _trailing(self, f):
+        '''The trailing-value term of feature f, (k - f - 1) * f_init^2,
+        as the JAX model rounds it (in double, then to f32).'''
+        return float(np.float32((self.dimensionality - f - 1)
+                                * self.feature_init ** 2))
+
+    def _run_funk_fused(self, bias_mode, verbose=False):
+        '''The reference's feature-by-feature Funk schedule (rating cache,
+        trailing term, per-feature convergence) over mini-batches
+        (``mfrec_tpu/models/gd.py:315-366``).  bias_mode 'learned' uses
+        the full-dot formulation with an off-feature dot cache.'''
+        if bias_mode == 'learned':
+            return self._run_funk_fused_learned(verbose)
+        uidx, iidx, vals = self.ratings.shuffled(
+            int(self.rng.integers(2**31)))
+        ub, ib, rb, mb, plan = self._batched(uidx, iidx, vals)
+        ubh, ibh = ub.cpu().numpy(), ib.cpu().numpy()
+        if bias_mode == 'fixed':
+            base = (self.overall_bias + self.items_bias[ibh]
+                    + self.users_bias[ubh]).astype(np.float32)
+        else:
+            base = np.ones(ubh.shape, np.float32)
+        cb = torch.from_numpy(base).to(self.device)
+        st = self._state(with_bias=False)
+        P, Q = st.P, st.Q
+        k = self.dimensionality
+        epoch = sgd_mf.make_funk_fused_feature_epoch(
+            float(self.learning_rate), self.K, bias_mode=bias_mode,
+            lo=self.min_rating, hi=self.max_rating)
+        self.rmse_history = []
+        for f in range(k):
+            pf, qf = P[:, f:f + 1].clone(), Q[:, f:f + 1].clone()
+            trailing = self._trailing(f)
+            self._converge_feature(lambda: epoch(
+                pf, qf, trailing, ub, ib, rb, mb, cb, plan=plan)[2], f,
+                verbose)
+            P[:, f:f + 1] = pf
+            Q[:, f:f + 1] = qf
+            cb = sgd_mf.funk_fused_update_cache(pf, qf, ub, ib, cb,
+                                                lo=self.min_rating,
+                                                hi=self.max_rating)
+        self.P, self.Q = _host(P, self.nbr_users), _host(Q, self.nbr_items)
+
+    def _run_funk_fused_learned(self, verbose=False):
+        '''Feature-by-feature learned-bias training over mini-batches
+        (``mfrec_tpu/models/gd.py:368-414``): the off-feature dot rides
+        a stream-aligned cache, refreshed after each feature.'''
+        uidx, iidx, vals = self.ratings.shuffled(
+            int(self.rng.integers(2 ** 31)))
+        ub, ib, rb, mb, plan = self._batched(uidx, iidx, vals)
+        st = self._state(with_bias=True)
+        P, Q, bu, bi = st.P, st.Q, st.bu, st.bi
+        mu = float(np.float32(self.overall_bias or 0.0))
+        k = self.dimensionality
+        epoch = sgd_mf.make_funk_fused_learned_epoch(
+            float(self.learning_rate), float(self.learning_rate_users),
+            float(self.learning_rate_items), self.K, self.K2, self.K3,
+            lo=self.min_rating, hi=self.max_rating)
+        ul, il = ub.long(), ib.long()
+        full_dot = (P[ul] * Q[il]).sum(-1)           # [nb, B] stream cache
+        self.rmse_history = []
+        for f in range(k):
+            pf, qf = P[:, f:f + 1].clone(), Q[:, f:f + 1].clone()
+            off = full_dot - pf[ul, 0] * qf[il, 0]
+            trailing = self._trailing(f)
+            self._converge_feature(lambda: epoch(
+                pf, qf, bu, bi, mu, trailing, ub, ib, rb, mb, off,
+                plan=plan)[4], f, verbose)
+            P[:, f:f + 1] = pf
+            Q[:, f:f + 1] = qf
+            full_dot = off + pf[ul, 0] * qf[il, 0]
+        self.P, self.Q = _host(P, self.nbr_users), _host(Q, self.nbr_items)
+        self.users_bias = _host(bu, self.nbr_users)
+        self.items_bias = _host(bi, self.nbr_items)
 
     def _alt_lrs(self):
         '''Learning rates for the alternating (row-mean step) engine.
@@ -271,6 +439,53 @@ class GDRecommender(MFRecommender):
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)
 
+    # -------------------------------------------------------- funk engine
+    def _run_funk(self, bias_mode, verbose=False, update_users=True,
+                  update_items=True, ratings=None):
+        '''Feature-by-feature training with the reference's exact
+        semantics (``mfrec_tpu/models/gd.py:883-941``): per feature, S1
+        epochs (one launch each on a CUDA model) until the feature
+        converges, then the feature is frozen into the rating cache.'''
+        if ratings is None:
+            uidx, iidx, vals = self.ratings.shuffled(
+                int(self.rng.integers(2**31)))
+        else:
+            uidx, iidx, vals = ratings
+
+        def t(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                self.device)
+
+        uidx, iidx, r = (t(uidx, np.int32), t(iidx, np.int32),
+                         t(vals, np.float32))
+        k = self.dimensionality
+        st = self._state(with_bias=(bias_mode != 'none'))
+        P, Q, bu, bi = st.P, st.Q, st.bu, st.bi
+        mu = float(st.mu)
+        cache = torch.zeros(r.shape, dtype=torch.float32, device=self.device)
+        self.rmse_history = []
+        for f in range(k):
+            pf, qf = P[:, f].contiguous(), Q[:, f].contiguous()
+            self._converge_feature(lambda: sgd_mf.serial_feature_epoch(
+                pf, qf, cache, uidx, iidx, r, f, k, self.feature_init,
+                float(self.learning_rate), self.K, mu, bu, bi,
+                float(self.learning_rate_users),
+                float(self.learning_rate_items), self.K2, self.K3,
+                bias_mode=bias_mode, lo=self.min_rating, hi=self.max_rating,
+                update_users=update_users, update_items=update_items, P=P,
+                Q=Q)[4], f, verbose)
+            P[:, f] = pf
+            Q[:, f] = qf
+            if bias_mode != 'learned':
+                cache = sgd_mf.update_cache(pf, qf, cache, uidx, iidx, mu,
+                                            bu, bi, bias_mode=bias_mode,
+                                            lo=self.min_rating,
+                                            hi=self.max_rating)
+        self.P, self.Q = _host(P, self.nbr_users), _host(Q, self.nbr_items)
+        if bias_mode == 'learned':
+            self.users_bias = _host(bu, self.nbr_users)
+            self.items_bias = _host(bi, self.nbr_items)
+
     # ------------------------------------------------------------ training
     def feature_training(self, initialize_model=True, handle_bias=False,
                          verbose=False):
@@ -300,11 +515,32 @@ class GDRecommender(MFRecommender):
         return decay, plateau
 
     def _dispatch_engine(self, mode, verbose):
-        '''``engine='auto'`` and ``'alternating'`` run the sorted-window
-        engine; every other engine, and ``resilience > 0``, raises.'''
+        '''Route ``self.engine`` (``'auto'`` = ``'alternating'``) to its
+        tier, with the JAX model's refusals of the options only
+        ``'alternating'`` wires (``mfrec_tpu/models/gd.py:960-1011``);
+        ``resilience > 0`` and the multi-device engines raise.'''
         engine = self.engine
         if engine == 'auto':
             engine = 'alternating'
+        if int(self.resilience) > 0 and engine != 'alternating':
+            raise Error(
+                "resilience is only wired on engine='alternating' "
+                "(got %r); set engine='alternating' or resilience=0"
+                % (engine,))
+        if float(self.lr_decay) != 1.0 and engine != 'alternating':
+            raise Error(
+                "lr_decay is only wired on engine='alternating' "
+                "(got %r); set engine='alternating' or lr_decay=1.0"
+                % (engine,))
+        if float(self.lr_plateau_decay) != 1.0:
+            if engine != 'alternating':
+                raise Error(
+                    "lr_plateau_decay is only wired on "
+                    "engine='alternating' (got %r)" % (engine,))
+            if int(self.resilience) > 0:
+                raise Error('lr_plateau_decay and resilience>0 are '
+                            'mutually exclusive (the resilient driver '
+                            'uses its lr scale for rollback backoff)')
         if int(self.resilience) > 0:
             raise Error(
                 'resilience > 0 is not ported yet (ResilientDriver needs '
@@ -312,11 +548,15 @@ class GDRecommender(MFRecommender):
                 'resilience=0')
         if engine in _UNPORTED_ENGINES:
             raise NotImplementedError(
-                'engine %r is not ported yet (ROADMAP %s); use '
-                "engine='alternating'" % (engine, _UNPORTED_ENGINES[engine]))
-        if engine != 'alternating':
+                'engine %r is not ported yet (ROADMAP %s); use a '
+                "single-device engine ('alternating', 'fused', 'funk' or "
+                "'funk_fused')" % (engine, _UNPORTED_ENGINES[engine]))
+        runs = {'alternating': self._run_alternating,
+                'fused': self._run_fused, 'funk': self._run_funk,
+                'funk_fused': self._run_funk_fused}
+        if engine not in runs:
             raise Error('unknown engine %r' % (engine,))
-        self._run_alternating(mode, verbose=verbose)
+        runs[engine](mode, verbose=verbose)
 
     train = feature_training
 
@@ -418,7 +658,108 @@ class GDRecommender(MFRecommender):
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)
 
+    def feature_training2(self, initialize_model=True, verbose=False):
+        '''Caller-controlled funk subloops (reference
+        gradient_descent.py:299-328): the same semantics as
+        engine='funk'.'''
+        self._init_factors(initialize_model, sequential=True)
+        self._run_funk('none', verbose=verbose)
+
+    def feature_training_folding(self, initialize_model=False,
+                                 handle_bias=False, verbose=False):
+        '''Warm-start continuation (reference
+        gradient_descent.py:450-469).'''
+        self.feature_training(initialize_model=initialize_model,
+                              handle_bias=handle_bias, verbose=verbose)
+        self.compute_components_mean()
+
+    def feature_training_batch(self, batch_size=10000, probeset=None,
+                               verbose=False):
+        '''Sequential mini-batch / online training over rating chunks
+        (reference gradient_descent.py:331-355): the fused tier on each
+        chunk in turn; returns the probe RMSE after each chunk.'''
+        from mfrec_tpu_torch.eval.metrics import test_predict_rating
+        idx, vals = self.get_ratings(randomize_order=False)
+        n = idx.shape[0]
+        nbr_batchs = max(n // batch_size, 1)
+        bounds = np.linspace(0, n, nbr_batchs + 1).astype(int)
+        rmse_probe = np.zeros(nbr_batchs)
+        self._init_factors(True, sequential=False)   # fused = joint
+        for b in range(nbr_batchs):
+            chunk = (idx[bounds[b]:bounds[b + 1], 0],
+                     idx[bounds[b]:bounds[b + 1], 1],
+                     vals[bounds[b]:bounds[b + 1]].astype(np.float32))
+            self._run_fused('none', ratings=chunk, verbose=verbose)
+            if probeset is not None:
+                rmse_probe[b] = test_predict_rating(
+                    self, probeset, nbr_samples=20000, quiet=True)[0]
+        return rmse_probe
+
+    def feature_training_online_prototype(self, ratings_index, ratings,
+                                          initialize_cache=True,
+                                          initialize_model=True,
+                                          verbose=False):
+        '''Online training on an explicit rating chunk (reference
+        gradient_descent.py:358-409): the funk tier on that chunk.'''
+        self._init_factors(initialize_model, sequential=True)
+        chunk = (ratings_index[:, 0].astype(np.int32),
+                 ratings_index[:, 1].astype(np.int32),
+                 np.asarray(ratings, np.float32))
+        self._run_funk('none', verbose=verbose, ratings=chunk)
+
+    def feature_training_prototype(self, verbose=False, randomize=False):
+        '''The pure-numpy funk loop (``ops.reference_numpy.
+        funk_train_oracle``; reference gradient_descent.py:214-257), kept
+        as the slow twin.'''
+        from mfrec_tpu_torch.ops.reference_numpy import funk_train_oracle
+        idx, vals = self.get_ratings(randomize_order=False)
+        U = np.full((self.dimensionality, self.nbr_items), self.feature_init)
+        V = np.full((self.dimensionality, self.nbr_users), self.feature_init)
+        funk_train_oracle(self.min_epochs, self.max_epochs,
+                          self.min_improvement, self.dimensionality,
+                          self.feature_init, self.learning_rate, self.K,
+                          U, V, idx, vals, bias_mode='none')
+        self.svd_u, self.svd_v = U, V
+
+    def feature_training_prototype_p(self, verbose=False, randomize=False,
+                                     nbr_batch=2):
+        '''Zinkevich parameter-averaged parallel SGD (reference
+        gradient_descent.py:124-211), the shards simulated in one process
+        as the reference does: the funk tier on each shard from the same
+        start, then the factors averaged.'''
+        idx, vals = self.get_ratings(randomize_order=False)
+        n = idx.shape[0]
+        cuts = np.linspace(0, n, nbr_batch + 1).astype(int)
+        self._init_factors(True, sequential=True)    # funk per shard
+        shards_P = []
+        shards_Q = []
+        for b in range(nbr_batch):
+            sl = slice(cuts[b], cuts[b + 1])
+            chunk = (idx[sl, 0].astype(np.int32), idx[sl, 1].astype(np.int32),
+                     vals[sl].astype(np.float32))
+            model = GDRecommender.__new__(GDRecommender)
+            model.__dict__.update(self.__dict__)
+            model.P, model.Q = self.P.copy(), self.Q.copy()
+            model._run_funk('none', verbose=verbose, ratings=chunk)
+            shards_P.append(model.P)
+            shards_Q.append(model.Q)
+        self.P = np.mean(shards_P, axis=0)
+        self.Q = np.mean(shards_Q, axis=0)
+
     # ---------------------------------------------------------- predictors
+    def estimate_rating(self, feature_index, user_index, f, cache=False,
+                        trailing=False):
+        '''Single-feature cached estimator (reference
+        gradient_descent.py:602-618).'''
+        s = cache if (cache and cache > 0) else 1.0
+        s += float(self.Q[feature_index, f] * self.P[user_index, f])
+        s = self.clamping(s, self.min_rating, self.max_rating)
+        if trailing:
+            s += ((self.dimensionality - f - 1)
+                  * self.feature_init * self.feature_init)
+            s = self.clamping(s, self.min_rating, self.max_rating)
+        return s
+
     def predict_rating(self, item_index, user_index):
         '''dot + 1.0 baseline (reference gradient_descent.py:621-631).'''
         return float(self.Q[item_index] @ self.P[user_index] + 1.0)
@@ -464,9 +805,135 @@ class GDRecommender(MFRecommender):
                     + self.users_bias[np.asarray(user_indices)])
         raise KeyError(predictor)
 
+    # --------------------------------------------------------------- fold-in
+    def folding_in_new_user(self, label, ratings):
+        '''Project a ratings vector onto the item factors (reference
+        gradient_descent.py:412-428).'''
+        Qt = self.svd_u.T          # [items, dim] in reference orientation
+        return np.asarray(ratings) @ Qt / (np.linalg.norm(Qt) ** 2)
+
+    def folding_in_new_item(self, label, ratings):
+        Pt = self.svd_v.T
+        return np.asarray(ratings) @ Pt / (np.linalg.norm(Pt) ** 2)
+
+    def _retrain(self, axis, index, ratings_index, ratings, verbose):
+        '''Fold-in retrain of one user (axis 0) or item (axis 1): a random
+        re-init of its row, then the funk tier with fixed biases over its
+        ratings, the other side frozen (reference gradient_descent.py:
+        879-905, estimator_loop_with_bias_dev with the fold-in masks).'''
+        valid = np.where(ratings_index[:, axis] == index)[0]
+        if axis == 0:
+            self.init_user_features(index)
+        else:
+            self.init_item_features(index)
+        self._ensure_bias_arrays()
+        chunk = (ratings_index[valid, 0].astype(np.int32),
+                 ratings_index[valid, 1].astype(np.int32),
+                 np.asarray(ratings, np.float32)[valid])
+        self._run_funk('fixed', verbose=verbose, update_users=axis == 0,
+                       update_items=axis == 1, ratings=chunk)
+
+    def retrain_user(self, user_index, ratings_index, ratings, verbose=False):
+        self._retrain(0, user_index, ratings_index, ratings, verbose)
+
+    def retrain_item(self, item_index, ratings_index, ratings, verbose=False):
+        self._retrain(1, item_index, ratings_index, ratings, verbose)
+
+    def _ensure_bias_arrays(self):
+        '''Biases for every user and item: computed or zero-filled where
+        missing, zero-padded after a fold-in grew the model.'''
+        if self.overall_bias is None:
+            self.compute_overall_avg()
+        if self.items_bias is None or self.users_bias is None:
+            self.initialize_bias()
+        if self.items_bias.shape[0] < self.nbr_items:
+            self.items_bias = np.pad(
+                self.items_bias, (0, self.nbr_items
+                                  - self.items_bias.shape[0]))
+        if self.users_bias.shape[0] < self.nbr_users:
+            self.users_bias = np.pad(
+                self.users_bias, (0, self.nbr_users
+                                  - self.users_bias.shape[0]))
+
+    def _fold_in(self, axis, label, other_index, values):
+        '''Append a user (axis 0) or item (axis 1) and fold it in from
+        its ratings, the training matrix untouched (reference
+        gradient_descent.py:908-954).  The factor matrix grows by
+        ``np.resize`` (old rows repeated) before the new row is drawn,
+        as in the JAX model, so the same seed draws the same row.'''
+        other_index = np.asarray(other_index)
+        values = np.asarray(values, np.float32)
+        if other_index.shape[0] != values.shape[0]:
+            raise Error('The index and the ratings array must be the same '
+                        'size')
+        if axis == 0:
+            new_id = self.users.add(label)
+            self.ratings.grow(nbr_users=new_id + 1)
+            self.P = np.resize(self.P, (new_id + 1, self.dimensionality))
+        else:
+            new_id = self.items.add(label)
+            self.ratings.grow(nbr_items=new_id + 1)
+            self.Q = np.resize(self.Q, (new_id + 1, self.dimensionality))
+        ratings_index = np.zeros((values.shape[0], 2), np.int32)
+        ratings_index[:, axis] = new_id
+        ratings_index[:, 1 - axis] = other_index
+        self._retrain(axis, new_id, ratings_index, values, False)
+        return new_id
+
+    def add_user(self, user_label, users_ratings_index, users_ratings):
+        '''Add and fold in a new user from its item ids and ratings;
+        returns the new user's index.'''
+        return self._fold_in(0, user_label, users_ratings_index,
+                             users_ratings)
+
+    def add_item(self, item_label, items_ratings_index, items_ratings):
+        '''Add and fold in a new item from its user ids and ratings;
+        returns the new item's index.'''
+        return self._fold_in(1, item_label, items_ratings_index,
+                             items_ratings)
+
     # ------------------------------------------------------ GD similarity
+    def similar_users(self, user_index, nbr_recommendations=2,
+                      similarity_threshold=False, similarities_output=False,
+                      method='cosine_binary'):
+        '''GD override: binary rated-set cosine by default (reference
+        gradient_descent.py:712-766), one product over the dense 0/1
+        rating indicator on the model's device (fine at ML-100K scale;
+        for large catalogues use a factor-space method, 'cosine' or
+        'pearson').'''
+        if method != 'cosine_binary':
+            return MFRecommender.similar_users(
+                self, user_index, nbr_recommendations, similarity_threshold,
+                similarities_output, method)
+        B = torch.from_numpy(self.ratings.to_dense() != 0).to(
+            self.device, torch.float32)
+        n = B.shape[0]
+        nbr = nbr_recommendations
+        if nbr == 'All':
+            nbr = n - 1
+        idx, sims = sim_ops.binary_cosine_topk(
+            B, torch.tensor([int(user_index)], device=self.device),
+            min(int(nbr), n - 1))
+        ids = idx[0].cpu().numpy()
+        vals = sims[0].cpu().numpy().astype(np.float64)
+        ids, vals = self._apply_threshold(ids, vals, similarity_threshold)
+        if not similarities_output:
+            return [int(x) for x in ids]
+        return [int(x) for x in ids], [float(v) for v in vals]
+
     def compute_components_mean(self):
         self.components_mean = np.asarray(self.Q).mean(axis=0)
+
+    def _normalize_cosine_similarity(self, A, B):
+        '''Component-mean-centred log-cosine (reference
+        gradient_descent.py:814-824).'''
+        An = np.asarray(A) - self.components_mean[1:self.dimensionality]
+        Bn = np.asarray(B) - self.components_mean[1:self.dimensionality]
+        ip = float(An @ Bn)
+        if ip == 0:
+            return 0.0
+        return float(np.log(1.0 + ip / (np.linalg.norm(An)
+                                        * np.linalg.norm(Bn))))
 
     def similar_items(self, item_index, nbr_recommendations=2,
                       similarity_threshold=False, similarities_output=False,
@@ -482,3 +949,11 @@ class GDRecommender(MFRecommender):
         return self._similar_topk(F, int(item_index), nbr_recommendations,
                                   similarity_threshold, similarities_output,
                                   method)
+
+    def find_user_top_match(self, user_index, nbr_recommendations=5):
+        '''GD override: every item scored with the dot predictor
+        (reference gradient_descent.py:769-802), through retrieval (K3 on
+        a CUDA model).'''
+        return self.find_recommended_items(
+            user_index=user_index, nbr_recommendations=nbr_recommendations,
+            predictor='predict_rating')

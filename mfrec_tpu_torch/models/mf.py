@@ -69,6 +69,11 @@ class MFRecommender(BaseRecommender):
         '''Clamp to [min, max] (``mfrec_tpu/models/mf.py:65-68``).'''
         return float(np.clip(value, min, max))
 
+    def warmyup(self):
+        '''Kept for API parity (reference mf.py:64-65): the CSC/CSR views
+        are cached inside the ratings store.'''
+        self.ratings.csc()
+
     def init_feature_normal(self, mean=0.0, std=0.1):
         '''Random-normal factor init from the model's numpy rng (Q, then
         P: the same seed gives the JAX package's factors).'''
@@ -77,6 +82,16 @@ class MFRecommender(BaseRecommender):
                                  (self.nbr_items, k)).astype(np.float32)
         self.P = self.rng.normal(mean, std,
                                  (self.nbr_users, k)).astype(np.float32)
+
+    def init_user_features(self, user_index, mean=0.0, std=0.1):
+        '''Redraw one user's row from the model's numpy rng.'''
+        self.P[user_index] = self.rng.normal(
+            mean, std, self.dimensionality).astype(np.float32)
+
+    def init_item_features(self, item_index, mean=0.0, std=0.1):
+        '''Redraw one item's row from the model's numpy rng.'''
+        self.Q[item_index] = self.rng.normal(
+            mean, std, self.dimensionality).astype(np.float32)
 
     # -------------------------------------------------------------- biases
     def compute_items_bias_bk(self):
@@ -112,6 +127,17 @@ class MFRecommender(BaseRecommender):
         self.users_bias = np.nan_to_num(bias).astype(np.float32)
 
     # ---------------------------------------------------------- prediction
+    def predict_rating_by_label(self, user_label, item_label,
+                                predictor='predict'):
+        '''``predictor`` on a (user, item) label pair; the overall average
+        (or 0) for an unknown label (``mfrec_tpu/models/mf.py:125-132``).'''
+        try:
+            item_index = self.items.index[item_label]
+            user_index = self.users.index[user_label]
+            return float(getattr(self, predictor)(item_index, user_index))
+        except KeyError:
+            return self.overall_bias if self.overall_bias else 0.0
+
     def _predictor_mode(self, predictor):
         '''The retrieval score mode of ``predictor``.  Every predictor of
         the ported models has one; the JAX package's per-item host loop for

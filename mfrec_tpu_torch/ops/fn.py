@@ -12,8 +12,9 @@ carries q_i (target), x_j (explicit-neighborhood weights factor) and y_j
     a_u   = |R(u)|^-1/2 * sum_{j in R(u)} [ (r_uj - b_uj) x_j + y_j ]
     b_uj  = mu + b_u + b_j
 
-The per-batch scatter tier (``make_fn_epoch``, ``:81-137``) is not
-ported yet.
+``make_fn_epoch`` (``:81-137``) is the per-batch scatter tier
+(``FNRecommender(engine='fused')``), its scatter-adds in a fixed order
+(``sgd_mf.plan_add_``).
 '''
 from __future__ import annotations
 
@@ -76,6 +77,83 @@ def user_aggregates(state, fl, fv, fm):
         agg = torch.bmm(resid[:, None, :], X[fl])[:, 0]
         agg = agg + torch.bmm(fm[:, None, :], Y[fl])[:, 0]
     return nrm * agg
+
+
+def fn_plan(ub, ib, fl, fm, mb, device):
+    '''The fixed-order scatter plans of ``make_fn_epoch`` for a batched
+    stream (numpy or tensors): the user side, the item side, and the
+    rated-list entries (``fl[ub]``, those with ``fm[ub] * mb`` > 0).'''
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+            np.asarray(a)
+    ub, ib, fl, fm, mb = (host(a) for a in (ub, ib, fl, fm, mb))
+    uplan, iplan = sgd_mf.fused_plan(ub, ib, device)
+    nb = ub.shape[0]
+    rows = fl[ub].reshape(nb, -1)
+    valid = (fm[ub] * mb[..., None] > 0).reshape(nb, -1)
+    return uplan, iplan, sgd_mf.scatter_plan(rows, device, valid=valid)
+
+
+def make_fn_epoch(lr, lr_bu, lr_bi, K, K_bu, K_bi, K_y=None, lo=1.0,
+                  hi=5.0, clamp_pred=True):
+    '''The per-batch scatter-add epoch (``mfrec_tpu/ops/fn.py:81-137``):
+
+        epoch_fn(state, ub, ib, rb, mb, fl, fv, fm, plan=None)
+            -> (state, rmse)
+
+    ub/ib/rb/mb: [nb, B] batched stream (``sgd_mf.batch_ratings``);
+    fl/fv/fm: [U, L] padded per-user rated lists (ids, values, mask).  Per
+    batch the users' lists are gathered ([B, L, k]), the aggregates a_u
+    formed (full f32 products), and q, x, y and the biases stepped, every
+    step reading the batch's starting state.  K regularizes q and x, K_y
+    (default K) y.  The state is updated in place; ``plan`` is
+    ``fn_plan(...)`` (built here when None), so the scatter-adds run in a
+    fixed order and a run on the card repeats bit for bit.'''
+    K_y = K if K_y is None else K_y
+
+    def epoch_fn(state, ub, ib, rb, mb, fl, fv, fm, plan=None):
+        Q, X, Y, bu, bi, mu = state
+        if plan is None:
+            plan = fn_plan(ub, ib, fl, fm, mb, Q.device)
+        uplan, iplan, xyplan = plan
+        k = Q.shape[1]
+        sses = []
+        for b in range(int(ub.shape[0])):
+            u, i = ub[b].long(), ib[b].long()
+            r, m = rb[b], mb[b]
+            flu, fvu, fmu = fl[u].long(), fv[u], fm[u]
+            base = mu + bu[u][:, None] + bi[flu]
+            resid = (fvu - base) * fmu                       # [B, L]
+            nrm = torch.rsqrt(torch.clamp(fmu.sum(1), min=1.0))
+            Xg, Yg = X[flu], Y[flu]                          # [B, L, k]
+            with ieee_f32():
+                agg = nrm[:, None] * (
+                    torch.bmm(resid[:, None, :], Xg)[:, 0]
+                    + torch.bmm(fmu[:, None, :], Yg)[:, 0])
+            qi = Q[i]
+            pred = mu + bu[u] + bi[i] + (qi * agg).sum(-1)
+            if clamp_pred:
+                pred = torch.clamp(pred, lo, hi)
+            err = (r - pred) * m
+            sses.append((err * err).sum())
+            dbu = lr_bu * (err - K_bu * bu[u] * m)
+            dbi = lr_bi * (err - K_bi * bi[i] * m)
+            dQ = lr * (err[:, None] * agg - K * qi * m[:, None])
+            # the neighbourhood factors: every j in R(u) steps by
+            # err * |R(u)|^-1/2 (x_j also by the residual)
+            en = (err * nrm)[:, None]                        # [B, 1]
+            mask3 = (fmu * m[:, None])[..., None]            # [B, L, 1]
+            gX = (en * resid)[..., None] * qi[:, None, :] - K * Xg
+            gY = en[..., None] * qi[:, None, :] - K_y * Yg
+            sgd_mf.plan_add_(bu, dbu, uplan, b)
+            sgd_mf.plan_add_(bi, dbi, iplan, b)
+            sgd_mf.plan_add_(Q, dQ, iplan, b)
+            sgd_mf.plan_add_(X, (lr * gX * mask3).reshape(-1, k), xyplan, b)
+            sgd_mf.plan_add_(Y, (lr * gY * mask3).reshape(-1, k), xyplan, b)
+        n = torch.clamp(mb.sum(), min=1.0)
+        return state, torch.sqrt(torch.stack(sses).sum() / n)
+
+    return epoch_fn
 
 
 def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,

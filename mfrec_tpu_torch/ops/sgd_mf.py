@@ -48,17 +48,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.ops import half_pass_kernel, window_agg_kernel
+from mfrec_tpu_torch.ops import half_pass_kernel, serial_kernel, \
+    window_agg_kernel
 
 
 class MFState(NamedTuple):
     '''Factor/bias state on one device.  P: [U, k]; Q: [I, k]; bu/bi:
-    learned or precomputed biases; mu: overall average (0-dim).'''
+    learned or precomputed biases; mu: overall average (0-dim); Y: [I, k]
+    implicit-feedback item factors (the fused tier's SVD++ variant), or
+    None.'''
     P: torch.Tensor
     Q: torch.Tensor
     bu: torch.Tensor
     bi: torch.Tensor
     mu: torch.Tensor
+    Y: torch.Tensor = None
 
 
 def init_state(nbr_users, nbr_items, k, feature_init=0.1, mode='constant',
@@ -502,3 +506,336 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
         return Paug, Qaug, Ypad, rmse
 
     return epoch_fn
+
+
+# --------------------------------------------------------------------------
+# Serial tier: exact reference semantics (oracle / small retrains)
+# --------------------------------------------------------------------------
+
+def serial_feature_epoch(pf, qf, cache, uidx, iidx, r, f, dim, f_init, lr, K,
+                         mu, bu, bi, lr_bu, lr_bi, K_bu, K_bi,
+                         bias_mode='none', lo=1.0, hi=5.0, update_users=True,
+                         update_items=True, P=None, Q=None):
+    '''One strictly sequential epoch of single-feature Funk SGD
+    (``mfrec_tpu/ops/sgd_mf.py:109-171``): S1 for CUDA tensors, its plain
+    version for CPU tensors (``ops.serial_kernel``).
+
+    pf [U] / qf [I]: the user and item feature-f columns; cache [N] the
+    per-rating frozen prediction of the features before f; uidx/iidx
+    int32 [N], r f32 [N].  bias_mode 'none' (baseline 1), 'fixed'
+    (baseline mu + bi + bu) or 'learned' (the full dot from the
+    feature's starting P and Q, and SGD on the biases; needs P and Q).
+    ``update_users`` / ``update_items`` are the fold-in masks.  Updates
+    pf, qf (and bu, bi when learned) in place, where the JAX function
+    returns new arrays, and returns ``(pf, qf, bu, bi, rmse)``.'''
+    return serial_kernel.serial_epoch(
+        pf, qf, cache, uidx, iidx, r, f, dim, f_init, lr, K, mu, bu, bi,
+        lr_bu, lr_bi, K_bu, K_bi, bias_mode=bias_mode, lo=lo, hi=hi,
+        update_users=update_users, update_items=update_items, P=P, Q=Q)
+
+
+def update_cache(pf, qf, cache, uidx, iidx, mu, bu, bi, bias_mode='none',
+                 lo=1.0, hi=5.0):
+    '''Freeze feature f into the per-rating cache after it converges
+    (``mfrec_tpu/ops/sgd_mf.py:174-185``); order-independent, so one
+    vectorized pass.  Returns the new cache.'''
+    ul, il = uidx.long(), iidx.long()
+    if bias_mode == 'none':
+        alt = torch.ones_like(cache)
+    else:
+        alt = (float(mu) + bi[il]) + bu[ul]
+    base = torch.where(cache > 0, cache, alt)
+    return clamp(base + pf[ul] * qf[il], lo, hi)
+
+
+# --------------------------------------------------------------------------
+# Mini-batch tiers: fused, funk-fused, multi-regularization
+# --------------------------------------------------------------------------
+
+def batch_ratings(uidx, iidx, r, batch_size, seed=None):
+    '''Host-side: pad and reshape COO ratings to the [nb, B] scan layout
+    (``mfrec_tpu/ops/sgd_mf.py:1006-1020``, the same permutation and
+    bytes).  Returns (ub, ib, rb, mask).'''
+    n = uidx.shape[0]
+    if seed is not None:
+        perm = np.random.default_rng(seed).permutation(n)
+        uidx, iidx, r = uidx[perm], iidx[perm], r[perm]
+    nb = -(-n // batch_size)
+    pad = nb * batch_size - n
+    mask = np.ones(n, np.float32)
+    uidx = np.pad(uidx, (0, pad)).reshape(nb, batch_size)
+    iidx = np.pad(iidx, (0, pad)).reshape(nb, batch_size)
+    r = np.pad(r, (0, pad)).reshape(nb, batch_size).astype(np.float32)
+    mask = np.pad(mask, (0, pad)).reshape(nb, batch_size)
+    return uidx, iidx, r, mask
+
+
+class ScatterPlan(NamedTuple):
+    '''A fixed-order scatter-add of each batch's rows, built on the host.
+    For batch b: ``perm[b, :nval[b]]`` orders its entries by row (stable,
+    so a row's entries keep stream order), the rows run in
+    ``lens[b, :nseg[b]]``-long segments and ``rows[b, :nseg[b]]`` are the
+    segments' rows, each once.'''
+    perm: torch.Tensor
+    lens: torch.Tensor
+    rows: torch.Tensor
+    nval: tuple
+    nseg: tuple
+
+
+def scatter_plan(rows, device, valid=None):
+    '''The ``ScatterPlan`` of ``rows`` [nb, n] (numpy ints) on ``device``;
+    ``valid`` [nb, n] (bool) leaves entries out.'''
+    key = np.asarray(rows).astype(np.int64)
+    nb, n = key.shape
+    if valid is None:
+        nval = np.full(nb, n, np.int64)
+    else:
+        valid = np.asarray(valid, bool)
+        nval = valid.sum(1).astype(np.int64)
+        key = np.where(valid, key, np.iinfo(np.int64).max)
+    order = np.argsort(key, axis=1, kind='stable')
+    sk = np.take_along_axis(key, order, 1)
+    inside = np.arange(n)[None, :] < nval[:, None]
+    start = np.ones((nb, n), bool)
+    start[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    start &= inside
+    nseg = start.sum(1)
+    b_idx, j_idx = np.nonzero(start)
+    seg = (np.cumsum(start, 1) - 1)[b_idx, j_idx]
+    nxt = np.append(j_idx[1:], 0)
+    last = np.append(b_idx[1:] != b_idx[:-1], True)
+    end = np.where(last, nval[b_idx], nxt)
+    lens = np.zeros((nb, n), np.int64)
+    out_rows = np.zeros((nb, n), np.int64)
+    lens[b_idx, seg] = end - j_idx
+    out_rows[b_idx, seg] = sk[b_idx, j_idx]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ScatterPlan(t(order), t(lens), t(out_rows),
+                       tuple(int(x) for x in nval), tuple(int(x) for x in nseg))
+
+
+def plan_sums(vals, plan, b):
+    '''Batch ``b``'s entries summed per row in a fixed order: returns
+    ``(rows, sums)``, each row once, its entries summed in stream order
+    (``torch.segment_reduce`` over the plan's permutation).'''
+    nv, ns = plan.nval[b], plan.nseg[b]
+    g = vals.index_select(0, plan.perm[b, :nv])
+    sums = torch.segment_reduce(g, 'sum', lengths=plan.lens[b, :ns],
+                                unsafe=True)
+    return plan.rows[b, :ns], sums
+
+
+def plan_add_(target, vals, plan, b):
+    '''``target[rows_e] += vals_e`` over batch ``b``'s entries e, in place
+    and in a fixed order: ``plan_sums``, then one add per row (distinct
+    rows, so ``index_add_`` involves no race).  The same on every run, on
+    any device; JAX's scatter on the CPU adds a row's entries one by one
+    instead, so the two differ by f32 rounding where a row repeats.'''
+    rows, sums = plan_sums(vals, plan, b)
+    target.index_add_(0, rows, sums)
+
+
+def fused_plan(ub, ib, device):
+    '''The user-side and item-side ``ScatterPlan`` of a batched stream
+    (``batch_ratings``'s ub, ib; numpy or tensors).'''
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+            np.asarray(a)
+    return (scatter_plan(host(ub), device), scatter_plan(host(ib), device))
+
+
+def _rmse(sse, mb):
+    n = torch.clamp(mb.sum(), min=1.0)
+    return torch.sqrt(sse / n)
+
+
+def make_fused_epoch(batch_size, lr, K, lr_bu=0.0, lr_bi=0.0, K_bu=0.0,
+                     K_bi=0.0, bias_mode='fixed', clamp_pred=True, lo=1.0,
+                     hi=5.0, implicit=False):
+    '''The all-features mini-batch epoch (``mfrec_tpu/ops/sgd_mf.py:
+    188-259``).  ``epoch_fn(state, ub, ib, rb, mb, flists=None,
+    fmask=None, plan=None) -> (state, rmse)``: per batch of the [nb, B]
+    stream, gather the P and Q rows, predict, and add the regularized
+    step to every touched row, duplicates accumulating (synchronous
+    mini-batch SGD).  The state (``MFState``) is updated in place and
+    returned; every step of a batch reads the batch's starting state, as
+    in the JAX scan.  ``plan`` is ``fused_plan(ub, ib)`` (built here when
+    None): the rows' sums are taken in a fixed order (``plan_add_``), so
+    a run on the card repeats bit for bit.
+
+    ``implicit=True``: SVD++ prediction with ``state.Y`` over each user's
+    padded rated list (``flists``/``fmask`` [U, L]), the Y step added
+    over those lists (an ops-level variant, as in the JAX package).'''
+    learned = bias_mode == 'learned'
+
+    def epoch_fn(state, ub, ib, rb, mb, flists=None, fmask=None, plan=None):
+        P, Q, bu, bi, mu, Y = state
+        if plan is None:
+            plan = fused_plan(ub, ib, P.device)
+        uplan, iplan = plan
+        yplan = None
+        if implicit:
+            fl_host = flists.cpu().numpy()[ub.cpu().numpy()]
+            yplan = scatter_plan(fl_host.reshape(fl_host.shape[0], -1),
+                                 P.device)
+        sses = []
+        for b in range(int(ub.shape[0])):
+            u, i = ub[b].long(), ib[b].long()
+            r, m = rb[b], mb[b]
+            pu, qi = P[u], Q[i]
+            if implicit:
+                fl = flists[u].long()
+                fm = fmask[u]
+                Yg = Y[fl]
+                ysum = (Yg * fm[..., None]).sum(1)
+                fnorm = torch.rsqrt(torch.clamp(fm.sum(1), min=1.0))[:, None]
+                pu_eff = pu + fnorm * ysum
+            else:
+                pu_eff = pu
+            dot = (pu_eff * qi).sum(-1)
+            if bias_mode == 'none':
+                pred = 1.0 + dot
+            else:
+                pred = mu + bu[u] + bi[i] + dot
+            if clamp_pred:
+                pred = clamp(pred, lo, hi)
+            err = (r - pred) * m
+            sses.append((err * err).sum())
+            gP = err[:, None] * qi - K * pu * m[:, None]
+            gQ = err[:, None] * pu_eff - K * qi * m[:, None]
+            if learned:
+                dbu = lr_bu * (err - K_bu * bu[u] * m)
+                dbi = lr_bi * (err - K_bi * bi[i] * m)
+            if implicit:
+                gy = (err[:, None] * fnorm * qi)[:, None, :] * fm[..., None] \
+                    - K * Yg * fm[..., None]
+            plan_add_(P, lr * gP, uplan, b)
+            plan_add_(Q, lr * gQ, iplan, b)
+            if learned:
+                plan_add_(bu, dbu, uplan, b)
+                plan_add_(bi, dbi, iplan, b)
+            if implicit:
+                plan_add_(Y, (lr * gy).reshape(-1, gy.shape[-1]), yplan, b)
+        return state, _rmse(torch.stack(sses).sum(), mb)
+
+    return epoch_fn
+
+
+def make_multi_reg_epoch(lr, bias_mode='fixed', clamp_pred=True, lo=1.0,
+                         hi=5.0):
+    '''S models with different regularization strengths trained in one
+    pass over the batches (``mfrec_tpu/ops/sgd_mf.py:262-308``, the
+    fused epoch vmapped over (P, Q, K)): the factors stacked on a leading
+    axis, each batch's ops run for all S at once.
+
+    ``epoch_fn(Ps [S,U,k], Qs [S,I,k], Ks [S], bu [U], bi [I], mu, ub,
+    ib, rb, mb, plan=None) -> (Ps, Qs, rmses [S])``, Ps and Qs updated in
+    place; ``plan`` as in ``make_fused_epoch``.'''
+
+    def seg_add(T, g, plan, b):
+        # the S models' rows side by side: one fixed-order segment sum
+        S, B, k = g.shape
+        rows, sums = plan_sums(g.permute(1, 0, 2).reshape(B, S * k), plan,
+                               b)
+        T.index_add_(1, rows, sums.reshape(-1, S, k).permute(1, 0, 2))
+
+    def epoch_fn(Ps, Qs, Ks, bu, bi, mu, ub, ib, rb, mb, plan=None):
+        if plan is None:
+            plan = fused_plan(ub, ib, Ps.device)
+        uplan, iplan = plan
+        Kc = Ks.to(Ps.dtype)[:, None, None]
+        sse = torch.zeros(Ps.shape[0], dtype=Ps.dtype, device=Ps.device)
+        for b in range(int(ub.shape[0])):
+            u, i = ub[b].long(), ib[b].long()
+            r, m = rb[b], mb[b]
+            pu, qi = Ps[:, u], Qs[:, i]
+            dot = (pu * qi).sum(-1)
+            pred = (1.0 + dot) if bias_mode == 'none' \
+                else (mu + bu[u] + bi[i] + dot)
+            if clamp_pred:
+                pred = clamp(pred, lo, hi)
+            err = (r - pred) * m
+            sse = sse + (err * err).sum(-1)
+            gP = lr * (err[..., None] * qi - Kc * pu * m[None, :, None])
+            gQ = lr * (err[..., None] * pu - Kc * qi * m[None, :, None])
+            seg_add(Ps, gP, uplan, b)
+            seg_add(Qs, gQ, iplan, b)
+        return Ps, Qs, _rmse(sse, mb)
+
+    return epoch_fn
+
+
+def make_funk_fused_feature_epoch(lr, K, bias_mode='none', lo=1.0, hi=5.0):
+    '''One mini-batch epoch of single-feature Funk training
+    (``mfrec_tpu/ops/sgd_mf.py:310-350``): the serial tier's cache,
+    trailing term and clamping, over batches with fixed-order
+    scatter-adds.  ``epoch_fn(pf [U,1], qf [I,1], trailing, ub, ib, rb,
+    mb, cb, plan=None) -> (pf, qf, rmse)``, ``cb`` [nb, B] the
+    stream-aligned cache (for 'fixed', the baseline folded in up front);
+    pf and qf updated in place.'''
+
+    def epoch_fn(pf, qf, trailing, ub, ib, rb, mb, cb, plan=None):
+        if plan is None:
+            plan = fused_plan(ub, ib, pf.device)
+        uplan, iplan = plan
+        sse = torch.zeros((), dtype=torch.float32, device=pf.device)
+        for b in range(int(ub.shape[0])):
+            u, i = ub[b].long(), ib[b].long()
+            r, m, c = rb[b], mb[b], cb[b]
+            pu, qi = pf[u, 0], qf[i, 0]
+            pred = clamp(c + pu * qi, lo, hi)
+            pred = clamp(pred + trailing, lo, hi)
+            err = (r - pred) * m
+            sse = sse + (err * err).sum()
+            dp = lr * (err * qi - K * pu * m)
+            dq = lr * (err * pu - K * qi * m)
+            plan_add_(pf, dp[:, None], uplan, b)
+            plan_add_(qf, dq[:, None], iplan, b)
+        return pf, qf, _rmse(sse, mb)
+
+    return epoch_fn
+
+
+def make_funk_fused_learned_epoch(lr, lr_bu, lr_bi, K, K_bu, K_bi, lo=1.0,
+                                  hi=5.0):
+    '''The learned-bias funk-fused epoch (``mfrec_tpu/ops/sgd_mf.py:
+    352-389``): the off-feature dot rides a stream-aligned cache ``off``
+    [nb, B], ``pred = clamp(mu + bu + bi + off + pf*qf + trailing)``.
+    ``epoch_fn(pf, qf, bu, bi, mu, trailing, ub, ib, rb, mb, off,
+    plan=None) -> (pf, qf, bu, bi, rmse)``, all updated in place.'''
+
+    def epoch_fn(pf, qf, bu, bi, mu, trailing, ub, ib, rb, mb, off,
+                 plan=None):
+        if plan is None:
+            plan = fused_plan(ub, ib, pf.device)
+        uplan, iplan = plan
+        sse = torch.zeros((), dtype=torch.float32, device=pf.device)
+        for b in range(int(ub.shape[0])):
+            u, i = ub[b].long(), ib[b].long()
+            r, m, o = rb[b], mb[b], off[b]
+            pu, qi = pf[u, 0], qf[i, 0]
+            pred = clamp(mu + bu[u] + bi[i] + o + pu * qi, lo, hi)
+            pred = clamp(pred + trailing, lo, hi)
+            err = (r - pred) * m
+            sse = sse + (err * err).sum()
+            dbu = lr_bu * (err - K_bu * bu[u] * m)
+            dbi = lr_bi * (err - K_bi * bi[i] * m)
+            dp = lr * (err * qi - K * pu * m)
+            dq = lr * (err * pu - K * qi * m)
+            plan_add_(bu, dbu, uplan, b)
+            plan_add_(bi, dbi, iplan, b)
+            plan_add_(pf, dp[:, None], uplan, b)
+            plan_add_(qf, dq[:, None], iplan, b)
+        return pf, qf, bu, bi, _rmse(sse, mb)
+
+    return epoch_fn
+
+
+def funk_fused_update_cache(pf, qf, ub, ib, cb, lo=1.0, hi=5.0):
+    '''Freeze a converged feature into the stream-aligned cache
+    (``mfrec_tpu/ops/sgd_mf.py:391-400``).'''
+    return clamp(cb + pf[ub.long(), 0] * qf[ib.long(), 0], lo, hi)

@@ -1,6 +1,6 @@
 '''
-Factor-space similarity search, plain PyTorch: one matmul and a stable
-sort.  Port of ``similar_topk`` and the helpers it uses from
+Similarity search, plain PyTorch: one matmul and a stable sort.  Port of
+``similar_topk`` with the helpers it uses and ``binary_cosine_topk`` from
 ``mfrec_tpu/ops/similarity.py``.
 
 Methods:
@@ -54,5 +54,23 @@ def similar_topk(F, query_idx, k, method='cosine', exclude_self=True):
         onehot = query_idx[:, None] == torch.arange(n, device=F.device)[None]
         s = torch.where(onehot, torch.tensor(NEG, dtype=s.dtype,
                                              device=s.device), s)
+    sims, idx = torch.sort(s, dim=1, descending=True, stable=True)
+    return idx[:, :k], sims[:, :k]
+
+
+def binary_cosine_topk(B, query_idx, k):
+    '''Binary (rated-set) cosine top-k (``mfrec_tpu/ops/similarity.py:
+    124-137``): one product over the 0/1 rating indicator ``B`` [U, I],
+    |A n B| / sqrt(|A| |B|), the query itself excluded, ties to the lower
+    row id.  Returns (idx [Bq, k] int64, sims [Bq, k]).'''
+    counts = B.sum(1)
+    inter = torch.matmul(B[query_idx], B.T)                     # [Bq, U]
+    denom = torch.sqrt(torch.clamp(counts[query_idx][:, None]
+                                   * counts[None, :], min=1e-12))
+    s = inter / denom
+    n = B.shape[0]
+    onehot = query_idx[:, None] == torch.arange(n, device=B.device)[None]
+    s = torch.where(onehot, torch.tensor(NEG, dtype=s.dtype,
+                                         device=s.device), s)
     sims, idx = torch.sort(s, dim=1, descending=True, stable=True)
     return idx[:, :k], sims[:, :k]

@@ -205,7 +205,7 @@ def test_init_and_aggregates():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-@pytest.mark.parametrize('engine,exc', [('fused', NotImplementedError),
+@pytest.mark.parametrize('engine,exc', [('alternating_ring', Exception),
                                         ('alternating_sharded',
                                          NotImplementedError),
                                         ('no_such_engine', Exception)])

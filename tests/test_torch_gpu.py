@@ -1,5 +1,5 @@
-'''K3, K1, K2, K4, P1 and P2 on a CUDA device: each kernel against its plain
-version, and a CUDA model against the same model on the CPU.  Every case
+'''K3, K1, K2, K4, P1, P2 and S1 on a CUDA device: each kernel against its
+plain version, and a CUDA model against the same model on the CPU.  Every case
 is marked ``gpu`` and skips without a card.  This file imports no JAX,
 so on a GPU host without it run it alone, without the suite's conftest:
 
@@ -19,7 +19,12 @@ sums atol 1e-5 + rtol 1e-5 (the same bf16 rows summed in f32 in another
 order); K4's item step: atol 1e-5 plus 1 % of the largest change
 (STEP_UPD_TOL, below).  The SVD++ and FN epochs of
 a CUDA model against a CPU model's, P1 and P2 and the A/B tool's 'old'
-epoch: K1's tolerances.'''
+epoch: K1's tolerances.  S1 against its plain version: bit for bit
+(both round every step to f32 in one order, no FMA); the fold-in's new
+row on the card against the CPU plain path: bit for bit; the fused,
+funk-fused and FN fused tiers: two runs on the card bit-identical (their
+scatter-adds run in a fixed order), against the CPU within 1e-5 (1e-4
+for FN): f32 sums in another order.'''
 import numpy as np
 import pytest
 import torch
@@ -990,3 +995,145 @@ def test_step_aggregate_kernel_matches_plain(cuda, kind, k, row_mean,
         torch.testing.assert_close(a, w, rtol=0,
                                    atol=K4_TOL['atol'] + STEP_UPD_TOL * moved)
         assert torch.equal(a, b)
+
+
+# S1, the serial Funk feature epoch: the kernel against its plain version
+# bit for bit (both compute every step in f32 in one order, no FMA), for
+# every template instance: 3 bias modes x 4 fold-in masks x the columns
+# in shared or in device memory.
+def _s1_case(cuda, U, I, n, k, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    return dict(uidx=t(rng.integers(0, U, n).astype(np.int32)),
+                iidx=t(rng.integers(0, I, n).astype(np.int32)),
+                r=t(rng.integers(1, 6, n).astype(np.float32)),
+                cache=t(np.where(rng.random(n) < 0.5, rng.uniform(1, 5, n),
+                                 0).astype(np.float32)),
+                P=t(rng.normal(0.1, 0.05, (U, k)).astype(np.float32)),
+                Q=t(rng.normal(0.1, 0.05, (I, k)).astype(np.float32)),
+                bu=t(rng.normal(0, 0.1, U).astype(np.float32)),
+                bi=t(rng.normal(0, 0.1, I).astype(np.float32)))
+
+
+def _s1_run(fn, d, f, mode, upd_u, upd_i, **kw):
+    P, Q = d['P'], d['Q']
+    return fn(P[:, f].contiguous(), Q[:, f].contiguous(), d['cache'],
+              d['uidx'], d['iidx'], d['r'], f, P.shape[1], 0.1, 0.01, 0.02,
+              3.53, d['bu'].clone(), d['bi'].clone(), 0.005, 0.006, 0.012,
+              0.004, bias_mode=mode, update_users=upd_u, update_items=upd_i,
+              P=P, Q=Q, **kw)
+
+
+@pytest.mark.parametrize('smem', [True, False])
+@pytest.mark.parametrize('masks', [(True, True), (True, False),
+                                   (False, True), (False, False)])
+@pytest.mark.parametrize('mode', ['none', 'fixed', 'learned'])
+def test_serial_funk_kernel_matches_plain(cuda, mode, masks, smem):
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    d = _s1_case(cuda, 120, 70, 700, 5, seed=3)
+    before = sk.serial_epoch.launches
+    got = _s1_run(sk.serial_epoch, d, 2, mode, *masks, smem=smem)
+    again = _s1_run(sk.serial_epoch, d, 2, mode, *masks, smem=smem)
+    torch.cuda.synchronize()
+    assert sk.serial_epoch.launches == before + 2
+    want = _s1_run(sk.serial_feature_epoch_ref, d, 2, mode, *masks)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, w)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('n', [1, 31, 32, 33, 65])
+def test_serial_funk_kernel_short_streams(cuda, n):
+    '''Streams shorter than, equal to and just past the 32-rating chunks
+    (a fold-in streams a user's few ratings).'''
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    d = _s1_case(cuda, 40, 30, n, 4, seed=n)
+    for mode in ('fixed', 'learned'):
+        got = _s1_run(sk.serial_epoch, d, 0, mode, True, False)
+        want = _s1_run(sk.serial_feature_epoch_ref, d, 0, mode, True, False)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+
+
+def test_cuda_foldin_matches_cpu(cuda):
+    '''add_user on a CUDA model (S1, then K3 for the new user's list)
+    against the same fold-in on a CPU model from the same state: the new
+    row bit for bit, the same top-5.'''
+    from mfrec_tpu_torch import interop
+    rng = np.random.default_rng(0)
+    U, I, k = 80, 60, 6
+    u = rng.integers(0, U, 900).astype(np.int32)
+    i = rng.integers(0, I, 900).astype(np.int32)
+    v = rng.integers(1, 6, 900).astype(np.float32)
+    P = rng.normal(0, 0.1, (U, k)).astype(np.float32)
+    Q = rng.normal(0, 0.1, (I, k)).astype(np.float32)
+    bu = rng.normal(0, 0.2, U).astype(np.float32)
+    bi = rng.normal(0, 0.2, I).astype(np.float32)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        m = interop.from_numpy(P, Q, bu, bi, 3.5, (u, i, v), device=dev,
+                               parameters={'min_epochs': 5,
+                                           'max_epochs': 30,
+                                           'learning_rate': 0.01})
+        m.seed(3)
+        new = m.add_user('new', np.arange(7), np.full(7, 5.0))
+        out[dev] = (m.P[new].copy(), m.find_recommended_items(
+            user_index=new, nbr_recommendations=5,
+            predictor='predict_rating_with_bias'))
+    np.testing.assert_array_equal(out['cuda'][0], out['cpu'][0])
+    assert out['cuda'][1][0] == out['cpu'][1][0]
+
+
+@pytest.mark.parametrize('engine', ['fused', 'funk_fused'])
+def test_cuda_minibatch_tiers_repeat(cuda, engine):
+    '''The fused and funk-fused tiers on the card: two runs from one seed
+    give bit-identical factors (fixed-order scatter-adds, no atomics),
+    and agree with a CPU model within f32 rounding of other sum
+    orders.'''
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    rng = np.random.default_rng(1)
+    U, I = 200, 120
+    u = rng.integers(0, U, 5000).astype(np.int32)
+    i = np.minimum(rng.zipf(1.5, 5000) - 1, I - 1).astype(np.int32)
+    v = rng.integers(1, 6, 5000).astype(np.float32)
+    outs = []
+    for dev in ('cuda', 'cuda', 'cpu'):
+        m = GDRecommender(U, I, {'min_epochs': 4, 'max_epochs': 4,
+                                 'nbr_features': 4, 'learning_rate': 0.01,
+                                 'engine': engine, 'batch_size': 1024},
+                          device=dev)
+        m.seed(9)
+        m.set_ratings(u, i, v)
+        m.feature_training_bias()
+        outs.append((m.P.copy(), m.Q.copy(), m.users_bias.copy()))
+    for a, b in zip(outs[0], outs[1]):
+        np.testing.assert_array_equal(a, b)
+    for a, c in zip(outs[0], outs[2]):
+        np.testing.assert_allclose(a, c, atol=1e-5)
+
+
+def test_cuda_fn_fused_matches_cpu(cuda):
+    '''FNRecommender(engine='fused') on the card: repeats bit for bit and
+    agrees with a CPU model (other f32 sum orders: within 1e-4).'''
+    from mfrec_tpu_torch.models.fn import FNRecommender
+    rng = np.random.default_rng(2)
+    U, I = 150, 90
+    u = rng.integers(0, U, 3000).astype(np.int32)
+    i = rng.integers(0, I, 3000).astype(np.int32)
+    v = rng.integers(1, 6, 3000).astype(np.float32)
+    outs = []
+    for dev in ('cuda', 'cuda', 'cpu'):
+        m = FNRecommender(U, I, {'nbr_epochs': 3, 'nbr_features': 5,
+                                 'engine': 'fused', 'batch_size': 512,
+                                 'min_improvement': -1.0}, device=dev)
+        m.seed(4)
+        m.set_ratings(u, i, v)
+        m.train()
+        outs.append((m.P.copy(), m.X.copy(), m.Y.copy()))
+    for a, b in zip(outs[0], outs[1]):
+        np.testing.assert_array_equal(a, b)
+    for a, c in zip(outs[0], outs[2]):
+        np.testing.assert_allclose(a, c, atol=1e-4)

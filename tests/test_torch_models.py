@@ -188,7 +188,7 @@ def test_port_surface_and_refusals():
     with pytest.raises(Error):
         p.set_parameters({'no_such': 1})
     with pytest.raises(NotImplementedError):        # not ported yet
-        GDRecommender(5, 4, {'engine': 'fused'}, device='cpu').train()
+        GDRecommender(5, 4, {'engine': 'dsgd'}, device='cpu').train()
     with pytest.raises(ValueError):
         p.recommend_batch([0], 2, predictor='predict_rating_implicit')
     with pytest.raises(ValueError):

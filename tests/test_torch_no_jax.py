@@ -33,7 +33,10 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.ops.probe_kernel', 'mfrec_tpu_torch.tools',
            'mfrec_tpu_torch.tools.bench_data',
            'mfrec_tpu_torch.tools.ab_kernel',
-           'mfrec_tpu_torch.tools.kernel_probe']
+           'mfrec_tpu_torch.tools.kernel_probe',
+           'mfrec_tpu_torch.ops.reference_numpy',
+           'mfrec_tpu_torch.ops.serial_kernel',
+           'mfrec_tpu_torch.eval.sweep']
 FORBIDDEN = ('jax', 'jaxlib', 'mfrec_tpu', 'bench', 'tools')
 
 

@@ -254,8 +254,8 @@ def test_port_trained_state_loads_in_jax(small_dataset, tmp_path):
 
 @pytest.mark.parametrize('over,exc', [
     ({'resilience': 1}, Error),
-    ({'engine': 'fused'}, NotImplementedError),
-    ({'engine': 'funk'}, NotImplementedError),
+    ({'engine': 'alternating_ring'}, NotImplementedError),
+    ({'engine': 'alternating_sharded', 'n_slices': 2}, NotImplementedError),
     ({'engine': 'dsgd'}, NotImplementedError),
     ({'engine': 'alternating_sharded'}, NotImplementedError),
     ({'engine': 'no_such_engine'}, Error),
