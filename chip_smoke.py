@@ -13,6 +13,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
     python3 chip_smoke.py --ab als A B B A  # the ALS CG path, the same way
     python3 chip_smoke.py --ab k3 A B B A   # K3, bench and serving shapes
+    python3 chip_smoke.py --ab s1 A B B A   # S1, its feature and fold-ins
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -96,26 +97,35 @@ Phase 9  the reference's main workflow on the card at full width
          floor, P@10, ``add_user`` through S1 and the new user's top-5
          through K3, all against the same workflow on the CPU; (b) the
          same with 'funk_fused', 'alternating' (through K1) and 'funk'
-         at a cut depth, S1's, K3's and K1's launches counted over (a)
-         and (b); (c) the fused and funk-fused tiers trained twice from
+         at a cut depth, S1's, K3's and K1's launches and the serial
+         epochs counted over (a) and (b), S1 launched at most once a
+         feature trained; (c) the fused and funk-fused tiers trained twice from
          one seed, bit for bit; (d) the fused tier at bench.py's
          operating point on phase 4's ML-10M shape (rank 64, B=16384,
          lr 0.002), its epoch by phase 4's difference quotient, launches
          an epoch and idle share; (e) ``add_user`` with 20 ratings on a
          rank-64 ML-10M-shape model, timed, its row held to the CPU plain
-         path; (f) ``FNRecommender(engine='fused')`` and
+         path, one converged feature of it split (host, enqueue, device)
+         beside the model's upload and download; (f)
+         ``FNRecommender(engine='fused')`` and
          ``optimize_regularization_vmapped`` against the CPU.  Phase 2
          holds S1 to its plain version bit for bit (every bias mode and
-         fold-in mask; the ML-100K-shape epoch timed with its bound and
-         the measured chain floor).
+         fold-in mask, the row table in shared and in device memory, one
+         epoch a launch and converged: every epoch's rmse and the epoch
+         count) and times the shuffled ML-100K-shape epoch with its
+         bound, one rating's measured chain and the longest dependency
+         chain.
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
 K3 (the bench shape exact and fast, with and without 64 rated ids, and
 the serving batch: CUDA events, device time per kernel, the wrapper's
 host time, the composed yardstick, the grid's split rule swept),
-K4's per-call sum (CUDA events and device time beside ``index_add_``) or
-the ALS CG path (a warm epoch, each half-sweep, the largest user and
+K4's per-call sum (CUDA events and device time beside ``index_add_``),
+S1 (the ML-100K feature epoch by events and device time, one converged
+feature through ``engine='funk'``, ``add_user`` at 16 features and at
+rank 64 on a random ML-10M-shape model: ms, S1 launches and rmse reads a
+call) or the ALS CG path (a warm epoch, each half-sweep, the largest user and
 hottest item buckets, by CUDA events; the public ``train()`` at 0, 3
 and 22 epochs on the host clock) in each checkout named, each in a
 process of its own with its own modules and kernel builds, and prints
@@ -2416,14 +2426,15 @@ def k4_launches():
 
 def zero_launch_counts():
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
-    from mfrec_tpu_torch.ops.serial_kernel import serial_epoch
+    from mfrec_tpu_torch.ops.serial_kernel import serial_converge
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               window_aggregate, step_aggregate, serial_epoch):
+               window_aggregate, step_aggregate, serial_converge):
         fn.launches = 0
+    serial_converge.epochs = 0
 
 
 def epochs_timed(train, history, card, device):
@@ -3341,8 +3352,13 @@ def k4_entry(k4, svdpp, fn):
         'step_enqueue_ms_fn': split(fn, 'X/Y step').get('host_ms')}]
 
 
-# S1 against its plain version on the card: bit for bit
+# S1 against its plain version on the card: bit for bit; its converge
+# entry under a rule that stops between 3 and 40 epochs; the ML-100K
+# feature timed over S1_EPOCHS epochs in one launch (example 2's least)
 S1_CASE = dict(U=300, I=200, n=5000, k=16)
+S1_CONVERGE_CASE = dict(U=300, I=200, n=1000, k=16)
+S1_RULE = dict(min_epochs=3, max_epochs=40, min_improvement=3e-3)
+S1_EPOCHS = 30
 # phase 9: examples/example2_movielens_100k_sgd.py:30-37 (16 features,
 # 30-120 epochs, min_improvement 1e-4, feature_init 0.1, K 0.02; lr 0.2
 # on 'alternating', 0.01 otherwise)
@@ -3407,96 +3423,187 @@ def s1_call(fn, d, f, mode, upd_u, upd_i, **kw):
 
 
 def s1_bound_ms(n, U, I, mode):
-    '''S1's least time by the usual rule: the stream read once (uidx,
-    iidx, r, cache: 16 bytes a rating), the columns read and written
-    once, the biases read once (learned: and written; the learned dot
-    reads the P and Q rows once more), against ~12 f32 operations a
+    '''S1's least time for one epoch by the usual rule: the stream read
+    once (uidx, iidx, r, cache: 16 bytes a rating), the columns read and
+    written once, the biases read once (learned: and written; the learned
+    dot reads the P and Q rows once more), against ~12 f32 operations a
     rating (2k more for the learned dot) at 67 TFLOP/s.'''
     nbytes = 16.0 * n + 8.0 * (U + I) + 4.0 * (U + I) * (
         2 if mode == 'learned' else 1)
     return roofline_ms(12.0 * n, nbytes)      # (ms, what bounds it)
 
 
+def s1_converge_call(fn, d, f, mode, upd_u, upd_i, **kw):
+    '''One converged feature (``fn``: the converge entry or its plain
+    version) on copies of ``d``'s columns, under S1_RULE.'''
+    return s1_call(fn, d, f, mode, upd_u, upd_i, **dict(S1_RULE, **kw))
+
+
+def ml100k_stream(device):
+    '''The ML-100K shape's 100,000 ratings shuffled as ``_run_funk``
+    shuffles a model's (seed 0), with phase 2's columns and fixed biases;
+    and the stream as ``ml100k_like.generate`` orders it (by user).'''
+    import torch
+    from mfrec_tpu_torch.data import ml100k_like
+    u, i, v = ml100k_like.generate(seed=0)
+    U, I, n = ml100k_like.N_USERS, ml100k_like.N_ITEMS, int(u.shape[0])
+    perm = np.random.default_rng(0).permutation(n)
+    rng = np.random.default_rng(2)
+    cols = dict(cache=torch.zeros(n, device=device),
+                P=torch.full((U, 16), 0.1, device=device),
+                Q=torch.full((I, 16), 0.1, device=device),
+                bu=torch.from_numpy(rng.normal(0, 0.3, U).astype(
+                    np.float32)).to(device),
+                bi=torch.from_numpy(rng.normal(0, 0.3, I).astype(
+                    np.float32)).to(device))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    shuffled = dict(cols, uidx=t(u[perm]), iidx=t(i[perm]), r=t(v[perm]))
+    by_user = dict(cols, uidx=t(u), iidx=t(i), r=t(v))
+    return shuffled, by_user, (U, I, n)
+
+
+def s1_times(sk, d, plan, epochs):
+    '''S1 on ``d``'s stream: one epoch a launch (CUDA events, device
+    time, host time with the rmse read), and ``epochs`` epochs in one
+    converge launch (CUDA events; ms an epoch).'''
+    cols = (d['P'][:, 0].contiguous(), d['Q'][:, 0].contiguous())
+    bu, bi = d['bu'].clone(), d['bi'].clone()
+    args = (cols[0], cols[1], d['cache'], d['uidx'], d['iidx'], d['r'], 0,
+            16, 0.1, 0.01, 0.02, 3.53, bu, bi, 0.005, 0.006, 0.012, 0.004)
+
+    def one():
+        return sk.serial_epoch(*args, bias_mode='fixed', plan=plan)
+
+    def many():
+        sk.serial_converge(*args, bias_mode='fixed', plan=plan,
+                           min_epochs=epochs, max_epochs=epochs)
+
+    ms = timed_ms(one, 10)
+    dev_ms, dev_n = kernel_device_ms(one, 'serial_funk', 10)
+    conv_ms = timed_ms(many, 3)
+    conv_dev, conv_n = kernel_device_ms(many, 'serial_funk', 2)
+    return dict(ms=ms, device_ms=dev_ms, device_n=dev_n,
+                converged_ms=conv_ms, converged_device_ms=conv_dev,
+                converged_device_n=conv_n, epochs=epochs,
+                epoch_ms_converged=conv_ms / epochs,
+                rounds=plan.rounds, table=plan.table)
+
+
 def phase2_serial(device='cuda'):
     '''S1 (``csrc/serial_funk.cu``) against its plain version on the card:
-    every bias mode and fold-in mask on a 5,000-rating stream at k=16,
-    columns in shared memory and in device memory, bit for bit; then one
-    feature epoch at the ML-100K shape (100,000 ratings, 943 x 1,682,
-    'fixed' as example 2 trains) timed beside its bound, the chain floor
-    and the plain version.'''
+    every bias mode and fold-in mask on a 5,000-rating stream at k=16, the
+    row table in shared memory and the columns in device memory, bit for
+    bit, one epoch a launch and converged (every epoch's rmse, the epoch
+    count); then the ML-100K shape (100,000 ratings shuffled, 943 x 1,682,
+    'fixed' as example 2 trains): a 3-epoch converge launch against three
+    one-epoch launches bit for bit, one epoch a launch and S1_EPOCHS in
+    one launch timed beside the bound, the plain version, one rating's
+    chain (measured) and the stream's longest dependency chain.'''
     import torch
     from mfrec_tpu_torch.ops import serial_kernel as sk
     card = card_line()
     c = S1_CASE
     d = s1_inputs(c['U'], c['I'], c['n'], c['k'], 1, device)
     log('phase 2: S1 against its plain version on the card (%d ratings, '
-        '%d x %d, k=%d; bit for bit)' % (c['n'], c['U'], c['I'], c['k']))
-    cases = [(m, uu, ui, None) for m in sk.BIAS_MODES
-             for uu, ui in ((True, True), (True, False), (False, True))]
-    cases += [(m, True, True, False) for m in sk.BIAS_MODES]
+        '%d x %d, k=%d, one epoch; %d ratings converged; bit for bit)'
+        % (c['n'], c['U'], c['I'], c['k'], S1_CONVERGE_CASE['n']))
+    cc = S1_CONVERGE_CASE
+    dc = s1_inputs(cc['U'], cc['I'], cc['n'], cc['k'], 2, device)
+    masks = ((True, True), (True, False), (False, True))
     worst = 0.0
-    for mode, uu, ui, smem in cases:
-        got = s1_call(sk.serial_epoch, d, 3, mode, uu, ui, smem=smem)
-        want = s1_call(sk.serial_feature_epoch_ref, d, 3, mode, uu, ui)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        worst = max(worst, err)
-        log('  %-7s users=%d items=%d %s: bit-identical=%s (max abs err '
-            '%.3g, rmse %.6f)' % (mode, uu, ui, 'device memory'
-                                  if smem is False else 'shared memory',
-                                  same, err, float(got[4])))
-        if not same:
-            raise SystemExit('S1 differs from its plain version')
-    # the ML-100K shape: one feature epoch, 'fixed', both sides updated
-    from mfrec_tpu_torch.data import ml100k_like
-    u, i, v = ml100k_like.generate(seed=0)
-    U, I, n = ml100k_like.N_USERS, ml100k_like.N_ITEMS, int(u.shape[0])
-    rng = np.random.default_rng(2)
-    dm = {'uidx': torch.from_numpy(u).to(device),
-          'iidx': torch.from_numpy(i).to(device),
-          'r': torch.from_numpy(v).to(device),
-          'cache': torch.zeros(n, device=device),
-          'P': torch.full((U, 16), 0.1, device=device),
-          'Q': torch.full((I, 16), 0.1, device=device),
-          'bu': torch.from_numpy(rng.normal(0, 0.3, U).astype(
-              np.float32)).to(device),
-          'bi': torch.from_numpy(rng.normal(0, 0.3, I).astype(
-              np.float32)).to(device)}
-    got = s1_call(sk.serial_epoch, dm, 0, 'fixed', True, True)
+    for entry in ('epoch', 'converge'):
+        for mode in sk.BIAS_MODES:
+            for uu, ui in masks:
+                if entry == 'epoch':
+                    want = s1_call(sk.serial_feature_epoch_ref, d, 3, mode,
+                                   uu, ui)
+                else:
+                    want = s1_converge_call(sk.serial_converge_ref, dc, 3,
+                                            mode, uu, ui)
+                for smem in (None, False):
+                    if entry == 'epoch':
+                        got = s1_call(sk.serial_epoch, d, 3, mode, uu, ui,
+                                      smem=smem)
+                        hist = (float(got[4]), float(want[4]))
+                    else:
+                        got = s1_converge_call(sk.serial_converge, dc, 3,
+                                               mode, uu, ui, smem=smem)
+                        hist = (got[4], want[4])
+                    torch.cuda.synchronize()
+                    same = hist[0] == hist[1] and all(
+                        torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got[:4], want[:4]))
+                    worst = max(worst, err)
+                    log('  %-8s %-7s users=%d items=%d %s: bit-identical=%s '
+                        '(max abs err %.3g; %s)'
+                        % (entry, mode, uu, ui, 'device memory'
+                           if smem is False else 'shared-memory table', same,
+                           err, 'rmse %.6f' % hist[0] if entry == 'epoch'
+                           else '%d epochs, last rmse %.6f'
+                           % (len(hist[0]), hist[0][-1])))
+                    if not same:
+                        raise SystemExit('S1 differs from its plain version')
+    shuffled, by_user, (U, I, n) = ml100k_stream(device)
+    plan = sk.serial_plan(shuffled['uidx'], shuffled['iidx'], False, device)
+    got = s1_call(sk.serial_epoch, shuffled, 0, 'fixed', True, True,
+                  plan=plan)
     t0 = time.perf_counter()
-    want = s1_call(sk.serial_feature_epoch_ref, dm, 0, 'fixed', True, True)
+    want = s1_call(sk.serial_feature_epoch_ref, shuffled, 0, 'fixed', True,
+                   True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     same = all(torch.equal(a, b) for a, b in zip(got, want))
-
-    cols = (dm['P'][:, 0].contiguous(), dm['Q'][:, 0].contiguous())
-    bu, bi = dm['bu'].clone(), dm['bi'].clone()
-
-    def call():                  # the launch alone, on the same columns
-        sk.serial_epoch(cols[0], cols[1], dm['cache'], dm['uidx'],
-                        dm['iidx'], dm['r'], 0, 16, 0.1, 0.01, 0.02, 3.53,
-                        bu, bi, 0.005, 0.006, 0.012, 0.004,
-                        bias_mode='fixed')
-
-    ms = timed_ms(call, 10)
-    dev_ms, dev_n = kernel_device_ms(call, 'serial_funk', 10)
-    floor_ms = sk.chain_floor_ms(n)
+    # three epochs in one converge launch against three one-epoch launches
+    three = s1_call(sk.serial_converge, shuffled, 0, 'fixed', True, True,
+                    plan=plan, min_epochs=3, max_epochs=3)
+    cols = (shuffled['P'][:, 0].contiguous(),
+            shuffled['Q'][:, 0].contiguous(), shuffled['bu'].clone(),
+            shuffled['bi'].clone())
+    rm = []
+    for _ in range(3):
+        rm.append(float(sk.serial_epoch(
+            cols[0], cols[1], shuffled['cache'], shuffled['uidx'],
+            shuffled['iidx'], shuffled['r'], 0, 16, 0.1, 0.01, 0.02, 3.53,
+            cols[2], cols[3], 0.005, 0.006, 0.012, 0.004, bias_mode='fixed',
+            plan=plan)[4]))
+    same3 = three[4] == rm and all(torch.equal(a, b)
+                                   for a, b in zip(three[:4], cols))
+    tm = s1_times(sk, shuffled, plan, S1_EPOCHS)
+    sorted_plan = sk.serial_plan(by_user['uidx'], by_user['iidx'], False,
+                                 device)
+    tm_sorted = s1_times(sk, by_user, sorted_plan, 3)
+    lat_ns = sk.chain_latency_ns(device)
+    depth = sk.longest_chain(shuffled['uidx'].cpu().numpy(),
+                             shuffled['iidx'].cpu().numpy())
     bound, bound_by = s1_bound_ms(n, U, I, 'fixed')
-    log('  ML-100K shape, one feature epoch (%d ratings, %d x %d, fixed): '
-        'bit-identical=%s; %.4f ms (events), %s device (%d of 10 '
-        'launches recorded), plain version %.1f ms; bound %.5f ms (%s), '
-        'chain floor %.4f ms (%d dependent shared-memory loads, measured), '
-        '%.1f ns a rating  [%s]'
-        % (n, U, I, same, ms, ms_or_not(dev_ms), dev_n, plain_ms, bound,
-           bound_by,
-           floor_ms, n, ms * 1e6 / n, card))
-    if not same:
+    log('  ML-100K shape, shuffled (%d ratings, %d x %d, fixed): one epoch '
+        'bit-identical=%s, 3 epochs in one launch against 3 launches '
+        'bit-identical=%s; one epoch a launch %.4f ms (events), %s device '
+        '(%d launches recorded), %.1f ns a rating; %d epochs in one launch '
+        '%.4f ms, %.4f ms an epoch (%s device a launch); plain version '
+        '%.1f ms; bound %.5f ms (%s); %d rounds an epoch (%d chunks); one '
+        'rating\'s chain %.2f ns (measured), longest dependency chain %d '
+        'ratings: critical path %.4f ms  [%s]'
+        % (n, U, I, same, same3, tm['ms'], ms_or_not(tm['device_ms']),
+           tm['device_n'], tm['ms'] * 1e6 / n, S1_EPOCHS, tm['converged_ms'],
+           tm['epoch_ms_converged'], ms_or_not(tm['converged_device_ms']),
+           plain_ms, bound, bound_by, plan.rounds, -(-n // sk.CHUNK), lat_ns,
+           depth, depth * lat_ns / 1e6, card))
+    log('  the same stream ordered by user (one user\'s ratings in a row): '
+        '%d rounds an epoch; one epoch a launch %.4f ms, %.4f ms an epoch '
+        'in a 3-epoch launch  [%s]' % (sorted_plan.rounds, tm_sorted['ms'],
+                                       tm_sorted['epoch_ms_converged'], card))
+    if not (same and same3):
         raise SystemExit('S1 differs from its plain version at the ML-100K '
                          'shape')
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, chain_floor_ms=floor_ms,
-                max_abs_err=worst, n=n)
+    return dict(tm, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                chain_ns=lat_ns, longest_chain=depth,
+                critical_ms=depth * lat_ns / 1e6, max_abs_err=worst, n=n,
+                by_user=tm_sorted)
 
 
 def heldout_floor_rmse(train, test, U, I):
@@ -3643,6 +3750,7 @@ def foldin_full_width(fb, devices=('cuda', 'cpu')):
     same state (the plain version: bit for bit).'''
     import torch
     from mfrec_tpu_torch import interop
+    from mfrec_tpu_torch.ops import serial_kernel as sk
     card = card_line()
     st = fb['state']
     users, items, vals = fb['data']
@@ -3653,7 +3761,7 @@ def foldin_full_width(fb, devices=('cuda', 'cpu')):
     new_items = [rng.choice(Q.shape[0], 20, replace=False).astype(np.int32)
                  for _ in range(3)]
     new_vals = [rng.integers(1, 6, 20).astype(np.float32) for _ in range(3)]
-    rows, times, epochs = {}, [], []
+    rows, times, epochs, launches = {}, [], [], []
     on, off = devices
     for d in devices:
         m = interop.from_numpy(P, Q, bu, bi, float(vals.mean()),
@@ -3664,6 +3772,7 @@ def foldin_full_width(fb, devices=('cuda', 'cpu')):
         for j in range(3 if d == on else 1):
             if d == 'cuda':
                 torch.cuda.synchronize()
+            before = sk.serial_converge.launches
             t0 = time.perf_counter()
             new_id = m.add_user('fold-%d' % j, new_items[j], new_vals[j])
             if d == 'cuda':
@@ -3671,36 +3780,65 @@ def foldin_full_width(fb, devices=('cuda', 'cpu')):
             if d == on:
                 times.append((time.perf_counter() - t0) * 1e3)
                 epochs.append(len(m.rmse_history))
+                launches.append(sk.serial_converge.launches - before)
             rows[d].append(m.P[new_id].copy())
         if d == 'cuda':
-            split = s1_epoch_cost(m, new_id, new_items[0], new_vals[0])
+            split = s1_feature_cost(m, new_id, new_items[0], new_vals[0])
+            split.update(state_transfer_ms(m))
     same = np.array_equal(rows[on][0], rows[off][0])
     err = float(np.abs(rows[on][0] - rows[off][0]).max())
     log('phase 9(e): add_user with 20 ratings on the rank-%d ML-10M-shape '
-        'model: %s ms a call (3 calls; %s serial epochs each), the new row '
-        'against the CPU plain path from the same state bit-identical=%s '
-        '(max abs err %.3g)  [%s]'
+        'model: %s ms a call (3 calls; %s serial epochs, %s S1 launches and '
+        'as many rmse reads each), the new row against the CPU plain path '
+        'from the same state bit-identical=%s (max abs err %.3g)  [%s]'
         % (P.shape[1], ' '.join('%.1f' % x for x in times),
-           ' '.join(str(e) for e in epochs), same, err, card))
+           ' '.join(str(e) for e in epochs),
+           ' '.join(str(x) for x in launches), same, err, card))
     if on == 'cuda':
-        log('  one serial epoch of that fold-in: %.1f us on the host clock '
-            'with its rmse read (%.1f us to enqueue the launch alone), %s '
-            'of device time; so %.0f of a call\'s %.0f ms are epochs'
-            % (split['epoch_us'], split['enqueue_us'],
-               ms_or_not(split['device_ms']),
-               split['epoch_us'] * epochs[-1] / 1e3, times[-1]))
+        log('  one converged feature of that fold-in (%d epochs): %.1f us '
+            'on the host clock with its rmse read (%.1f us to enqueue the '
+            'launch alone), %s of device time; the whole model\'s P, Q '
+            'and biases to the card %.2f ms (%.1f MB), P and Q back %.2f ms '
+            '(not moved by a fold-in)  [%s]' % (split['epochs'], split['feature_us'],
+                      split['enqueue_us'], ms_or_not(split['device_ms']),
+                      split['upload_ms'], split['mb'], split['download_ms'],
+                      card))
     if not same or not np.isfinite(rows[on][0]).all():
         raise SystemExit('the fold-in on the card differs from the CPU '
                          'plain path')
     return dict(add_ms=float(np.median(times)), add_ms_all=times,
-                epochs=epochs, **({'split': split} if on == 'cuda' else {}))
+                epochs=epochs, launches=launches,
+                **({'split': split} if on == 'cuda' else {}))
 
 
-def s1_epoch_cost(m, user, items, vals, calls=200):
-    '''What one serial epoch of a fold-in costs on the card: ``calls``
-    epochs of the fold-in's stream through ``serial_epoch``, each with
-    its rmse read as the convergence rule reads it (host clock), the
-    same without the read (the enqueue), and one epoch's device time.'''
+def state_transfer_ms(m, reps=5):
+    '''The whole model's P, Q and biases to the card (``_state``) and P
+    and Q back (``_host``), ms each on the host clock (median of
+    ``reps``), and the MB moved up: what a fold-in would move if
+    ``_run_funk`` did not move only the stream's rows.'''
+    import torch
+    from mfrec_tpu_torch.models.gd import _host
+    up, down = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = m._state(with_bias=True)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        _host(st.P, m.nbr_users), _host(st.Q, m.nbr_items)
+        down.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(x.numel() * 4 for x in (st.P, st.Q, st.bu, st.bi)) / 1e6
+    return dict(upload_ms=float(np.median(up)),
+                download_ms=float(np.median(down)), mb=mb)
+
+
+def s1_feature_cost(m, user, items, vals, calls=50):
+    '''What one converged feature of a fold-in costs on the card: ``calls``
+    features (feature 0 of the fold-in's stream, example 2's rule)
+    through ``serial_converge`` on the host clock, each with its one read
+    of the rmse; the same launches without the read (the enqueue); the
+    launch's device time; and the epochs a feature ran.'''
     import torch
     from mfrec_tpu_torch.ops import serial_kernel as sk
     dev = m.device
@@ -3715,25 +3853,39 @@ def s1_epoch_cost(m, user, items, vals, calls=200):
     pf = t(m.P[:, 0], np.float32)
     qf = t(m.Q[:, 0], np.float32)
     bu, bi = t(m.users_bias, np.float32), t(m.items_bias, np.float32)
+    plan = sk.serial_plan(uidx, iidx, False, dev)
+    args = (cache, uidx, iidx, r, 0, k, 0.1, 0.01, 0.02, 3.5, bu, bi, 0.0,
+            0.0, 0.0, 0.0)
+    rule = dict(min_epochs=m.min_epochs, max_epochs=m.max_epochs,
+                min_improvement=m.min_improvement)
 
-    def one():
-        return sk.serial_epoch(pf, qf, cache, uidx, iidx, r, 0, k, 0.1,
-                               0.01, 0.02, 3.5, bu, bi, 0.0, 0.0, 0.0, 0.0,
-                               bias_mode='fixed', update_items=False)[4]
+    def feature():                 # the rmse read once, as _run_funk does
+        return sk.serial_converge(pf.clone(), qf, *args, bias_mode='fixed',
+                                  update_items=False, plan=plan, **rule)[4]
 
-    float(one())
+    scal = sk.epoch_scalars(0, k, 0.1, 0.01, 0.02, 3.5, 0.0, 0.0, 0.0, 0.0,
+                            1.0, 5.0)
+
+    def enqueue():                 # the launch alone, nothing read
+        return sk._launch(pf.clone(), qf, cache, uidx, iidx, r, 0, scal, bu,
+                          bi, 'fixed', True, False, None, None, plan,
+                          (0, 2.0, 2.0, rule['min_epochs'], rule['max_epochs'],
+                           rule['min_improvement']), rule['max_epochs'])
+
+    epochs = len(feature())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        float(one())
-    epoch_us = (time.perf_counter() - t0) * 1e6 / calls
+        feature()
+    feature_us = (time.perf_counter() - t0) * 1e6 / calls
     t0 = time.perf_counter()
     for _ in range(calls):
-        one()
+        enqueue()
     enqueue_us = (time.perf_counter() - t0) * 1e6 / calls
     torch.cuda.synchronize()
-    return dict(epoch_us=epoch_us, enqueue_us=enqueue_us,
-                device_ms=kernel_device_ms(one, 'serial_funk', 20)[0])
+    return dict(feature_us=feature_us, enqueue_us=enqueue_us,
+                epochs=epochs,
+                device_ms=kernel_device_ms(feature, 'serial_funk', 20)[0])
 
 
 def fn_and_sweep(data, devices=('cuda', 'cpu')):
@@ -3800,7 +3952,7 @@ def phase9(device='cuda', reduced=None):
     and (b), the workflow this phase drives, and read after them.'''
     from mfrec_tpu_torch.data import ml100k_like
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
-    from mfrec_tpu_torch.ops.serial_kernel import serial_epoch
+    from mfrec_tpu_torch.ops.serial_kernel import serial_converge
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     card = card_line()
     t_phase = time.perf_counter()
@@ -3831,13 +3983,22 @@ def phase9(device='cuda', reduced=None):
             raise SystemExit('engine %r: held-out rmse %.4f does not beat '
                              'the bias-only floor %.4f'
                              % (engine, r['rmse'], floor))
-    launches = {'s1': serial_epoch.launches,
+    launches = {'s1': serial_converge.launches,
                 'k3': topn_scores_kernel.launches, 'k1': half_pass.launches}
-    log('  launches over (a) and (b): S1 %d, K3 %d, K1 %d'
-        % (launches['s1'], launches['k3'], launches['k1']))
+    # features _run_funk trained: 'funk''s 16, and each add_user's 16
+    features = sum(r['model'].dimensionality * (1 + (e == 'funk'))
+                   for e, r in runs.items())
+    serial_epochs = serial_converge.epochs
+    log('  launches over (a) and (b): S1 %d (%d features trained through '
+        'S1, %d serial epochs), K3 %d, K1 %d'
+        % (launches['s1'], features, serial_epochs, launches['k3'],
+           launches['k1']))
     if device == 'cuda' and min(launches.values()) == 0:
         raise SystemExit('the workflow never launched a kernel of its path: '
                          '%s' % launches)
+    if device == 'cuda' and launches['s1'] > features:
+        raise SystemExit('_run_funk launched S1 %d times for %d features'
+                         % (launches['s1'], features))
     a = runs['fused']
     cpu = example2('fused', 'cpu', data)
     sdiff = max(abs(x - y) for x, y in zip(a['scores'], cpu['scores']))
@@ -3869,36 +4030,46 @@ def phase9(device='cuda', reduced=None):
     log('  phase 9 in %.1f s  [%s]' % (time.perf_counter() - t_phase, card))
     return dict(runs={e: {k: v for k, v in r.items() if k != 'model'}
                       for e, r in runs.items()},
-                launches=launches, floor=floor, fused=dict(
+                launches=launches, features=features,
+                serial_epochs=serial_epochs, floor=floor, fused=dict(
                     (k, v) for k, v in fb.items()
                     if k not in ('state', 'data')), fold=fold, fn=fns)
 
 
 def serial_entry(s1, p9):
     '''S1's entry of the kernels line: the ML-100K-shape feature epoch of
-    phase 2, the launches of phase 9's workflow.'''
+    phase 2 (one a launch; and S1_EPOCHS in one launch), the launches of
+    phase 9's workflow.'''
     if not s1:
         return []
+    fold = p9.get('fold', {})
     return [{
-        'name': 'serial_funk (S1, serial Funk feature epoch; no TPU '
-                'counterpart)',
+        'name': 'serial_funk (S1, a feature\'s serial Funk epochs and its '
+                'convergence rule; no TPU counterpart)',
         'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/serial_funk.cu',
         'replaces': 'mfrec_tpu/ops/sgd_mf.py:109 (serial_feature_epoch, a '
-                    'lax.fori_loop outside any Pallas kernel)',
+                    'lax.fori_loop outside any Pallas kernel; the loop '
+                    'around it, mfrec_tpu/models/gd.py:910)',
         'launches': p9.get('launches', {}).get('s1'),
         'max_abs_err': s1['max_abs_err'],
         'ms': s1['ms'], 'plain_ms': s1['plain_ms'],
         'bound_ms': s1['bound_ms'], 'bound_by': s1['bound_by'],
         'library_ms': None,
-        'shape': 'one feature epoch at the ML-100K shape: 100000 ratings, '
-                 '943 x 1682, fixed biases',
+        'shape': 'one feature epoch at the ML-100K shape: 100000 ratings '
+                 'shuffled, 943 x 1682, fixed biases',
         'device_ms': s1['device_ms'],
-        'chain_floor_ms': s1['chain_floor_ms'],
+        'epoch_ms_converged': s1['epoch_ms_converged'],
+        'converged_epochs': s1['epochs'],
+        'rounds_an_epoch': s1['rounds'],
+        'chain_ns': s1['chain_ns'], 'longest_chain': s1['longest_chain'],
+        'critical_path_ms': s1['critical_ms'],
+        'ms_by_user_order': s1['by_user']['ms'],
+        'features_phase9': p9.get('features'),
+        'serial_epochs_phase9': p9.get('serial_epochs'),
         'add_user_ms_example2': p9.get('runs', {}).get('fused', {}).get(
             'add_ms'),
-        'add_user_ms_rank64': p9.get('fold', {}).get('add_ms'),
-        'foldin_epoch_us_rank64': p9.get('fold', {}).get('split', {}).get(
-            'epoch_us')}]
+        'add_user_ms_rank64': fold.get('add_ms'),
+        'foldin_feature_us_rank64': fold.get('split', {}).get('feature_us')}]
 
 
 def ab_layouts(path):
@@ -4156,7 +4327,118 @@ def ab_als(ub, ib, users, items):
     return out
 
 
-AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3')
+def _s1_count(sk):
+    '''S1's launch counter in either design: ``serial_converge``'s, or
+    the one-epoch-a-launch ``serial_epoch``'s.'''
+    return getattr(sk, 'serial_converge', sk.serial_epoch)
+
+
+def ab_s1(reps=3):
+    '''S1 in this process's checkout: the ML-100K feature epoch (the
+    shuffled stream, 'fixed'; CUDA events and device time, ns a rating);
+    one converged feature through the public API (``engine='funk'``, one
+    feature, example 2's settings, the u1 train split; host clock); and
+    ``add_user`` (20 ratings at rank 64 on a random ML-10M-shape model;
+    example 2's items 0-9 at 16 features on its fused-trained model), ms
+    a call, S1 launches a call and host reads of an rmse a call (one a
+    launch in both designs).  Medians of ``reps``.'''
+    import torch
+    from mfrec_tpu_torch import interop
+    from mfrec_tpu_torch.data import ml100k_like
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    dev = 'cuda'
+    count = _s1_count(sk)
+    out = {}
+    shuffled, _, (U, I, n) = ml100k_stream(dev)
+    kw = {}
+    if hasattr(sk, 'serial_plan'):
+        kw['plan'] = sk.serial_plan(shuffled['uidx'], shuffled['iidx'],
+                                    False, dev)
+    pf = shuffled['P'][:, 0].contiguous()
+    qf = shuffled['Q'][:, 0].contiguous()
+    bu, bi = shuffled['bu'].clone(), shuffled['bi'].clone()
+
+    def epoch():
+        sk.serial_epoch(pf, qf, shuffled['cache'], shuffled['uidx'],
+                        shuffled['iidx'], shuffled['r'], 0, 16, 0.1, 0.01,
+                        0.02, 3.53, bu, bi, 0.005, 0.006, 0.012, 0.004,
+                        bias_mode='fixed', **kw)
+
+    out['epoch_ms'] = timed_ms(epoch, 10)
+    out['epoch_device_ms'], out['epoch_device_n'] = kernel_device_ms(
+        epoch, 'serial_funk', 10)
+    out['epoch_ns_a_rating'] = out['epoch_ms'] * 1e6 / n
+    data = ml100k_like.u1_split(seed=0)
+    (users, items, values), _ = data
+    Uu, Ii = int(users.max()) + 1, int(items.max()) + 1
+
+    def sync():
+        torch.cuda.synchronize()
+
+    feat = []
+    for _ in range(reps):
+        m = GDRecommender(Uu, Ii, dict(EX2_PARAMS, nbr_features=1,
+                                       engine='funk', learning_rate=0.01),
+                          device=dev)
+        m.seed(0)
+        m.set_ratings(users, items, values)
+        before = count.launches
+        sync()
+        t0 = time.perf_counter()
+        m.train(handle_bias=True)
+        sync()
+        feat.append(((time.perf_counter() - t0) * 1e3,
+                     count.launches - before, len(m.rmse_history)))
+    out['feature_ms'] = float(np.median([x[0] for x in feat]))
+    out['feature_ms_all'] = [x[0] for x in feat]
+    out['feature_launches'], out['feature_epochs'] = feat[0][1:]
+    out['feature_reads'] = feat[0][1]
+
+    def adds(m, calls):
+        rec = []
+        for j, (its, vals) in enumerate(calls):
+            before = count.launches
+            sync()
+            t0 = time.perf_counter()
+            m.add_user('ab-%d' % j, its, vals)
+            sync()
+            rec.append(((time.perf_counter() - t0) * 1e3,
+                        count.launches - before))
+        return ([x[0] for x in rec], [x[1] for x in rec])
+
+    m = GDRecommender(Uu, Ii, dict(EX2_PARAMS, engine='fused',
+                                   learning_rate=0.01), device=dev)
+    m.seed(0)
+    m.set_ratings(users, items, values)
+    m.train(handle_bias=True)
+    ms, la = adds(m, [(np.arange(10, dtype=np.int32),
+                       np.full(10, 5.0, np.float32))] * reps)
+    out.update(add_user_ms_16=float(np.median(ms)), add_user_ms_16_all=ms,
+               add_user_launches_16=la[0], add_user_reads_16=la[0])
+    rng = np.random.default_rng(4)
+    Um, Im, k = ML10M['U'], ML10M['I'], 64
+    P = rng.normal(0, 0.1, (Um, k)).astype(np.float32)
+    Q = rng.normal(0, 0.1, (Im, k)).astype(np.float32)
+    bu0 = rng.normal(0, 0.3, Um).astype(np.float32)
+    bi0 = rng.normal(0, 0.3, Im).astype(np.float32)
+    ru = rng.integers(0, Um, 100_000).astype(np.int32)
+    ri = rng.integers(0, Im, 100_000).astype(np.int32)
+    rv = rng.integers(1, 6, 100_000).astype(np.float32)
+    m = interop.from_numpy(P, Q, bu0, bi0, 3.5, (ru, ri, rv), device=dev,
+                           parameters=dict(EX2_PARAMS, nbr_features=k,
+                                           learning_rate=0.01))
+    m.seed(7)
+    ms, la = adds(m, [(rng.choice(Im, 20, replace=False).astype(np.int32),
+                       rng.integers(1, 6, 20).astype(np.float32))
+                      for _ in range(reps)])
+    out.update(add_user_ms_64=float(np.median(ms)), add_user_ms_64_all=ms,
+               add_user_launches_64=la, add_user_reads_64=la,
+               add_user_epochs_64=len(m.rmse_history))
+    return out
+
+
+AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3', 's1')
 
 
 def ab_main(mode, checkouts, child):
@@ -4175,6 +4457,9 @@ def ab_main(mode, checkouts, child):
         if mode == 'k3':
             _cuda_build.build(['topn'])
             out = ab_k3()
+        elif mode == 's1':
+            _cuda_build.build(['serial_funk'])
+            out = ab_s1()
         elif als:
             _cuda_build.build([x for x in ('pcg', 'cg_bucket') if os.path.exists(
                 os.path.join(checkout, 'mfrec_tpu_torch', 'csrc', x + '.cu'))])
@@ -4190,7 +4475,7 @@ def ab_main(mode, checkouts, child):
         out.update(checkout=checkout, card=card_line())
         print('AB %s %s' % (mode, json.dumps(out)), flush=True)
         return 0
-    if mode == 'k3':      # seeded inputs made in each process
+    if mode in ('k3', 's1'):      # seeded inputs made in each process
         return max(subprocess.run(
             [sys.executable, os.path.abspath(__file__), '--ab', mode,
              '--ab-child', d]).returncode for d in checkouts)
@@ -4216,8 +4501,9 @@ def main(argv=None):
     ap.add_argument('--phases', default='123456789',
                     help='which phases to run (default: all)')
     ap.add_argument('--ab', choices=AB_MODES,
-                    help='instead of the phases, time K1, K3, K4 or the ALS '
-                         'CG path in each checkout given, in the order given')
+                    help='instead of the phases, time K1, K3, K4, S1 or the '
+                         'ALS CG path in each checkout given, in the order '
+                         'given')
     ap.add_argument('--ab-child', action='store_true', help=argparse.SUPPRESS)
     ap.add_argument('checkouts', nargs='*', help='checkouts for --ab')
     args = ap.parse_args(argv)

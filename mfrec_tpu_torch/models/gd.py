@@ -17,8 +17,9 @@ Engines, on the model's device:
   (``ops.sgd_mf.make_fused_epoch``), plain torch ops with fixed-order
   scatter-adds, so a CUDA run repeats bit for bit;
 * ``engine='funk'``: the reference's feature-by-feature loop, exact
-  (``ops.sgd_mf.serial_feature_epoch``: the hand-written S1 kernel,
-  ``csrc/serial_funk.cu``, on a CUDA model); fold-in (``add_user``,
+  (``ops.serial_kernel.serial_converge``: on a CUDA model the
+  hand-written S1 kernel, ``csrc/serial_funk.cu``, one launch a
+  feature); fold-in (``add_user``,
   ``retrain_user``...) and ``feature_training2`` / ``_dev`` /
   ``_online_prototype`` run it too;
 * ``engine='funk_fused'``: the same schedule over mini-batches
@@ -44,7 +45,7 @@ import torch
 from mfrec_tpu_torch.engine.trainer import ConvergenceDriver
 from mfrec_tpu_torch.models.base import DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender
-from mfrec_tpu_torch.ops import sgd_mf
+from mfrec_tpu_torch.ops import serial_kernel, sgd_mf
 from mfrec_tpu_torch.ops import similarity as sim_ops
 
 # engines of the JAX model that the port does not have yet -> ROADMAP item
@@ -207,19 +208,23 @@ class GDRecommender(MFRecommender):
         return (np.zeros(self.nbr_users, np.float32),
                 np.zeros(self.nbr_items, np.float32))
 
-    def _state(self, with_bias, mu=None):
-        '''The factors and biases as f32 tensors on the model's device.'''
+    def _state(self, with_bias, mu=None, rows=None):
+        '''The factors and biases as f32 tensors on the model's device;
+        ``rows`` = (user ids, item ids): only those rows, in that order.'''
         zu, zi = self._zero_biases()
         bu = self.users_bias if (with_bias and self.users_bias is not None) \
             else zu
         bi = self.items_bias if (with_bias and self.items_bias is not None) \
             else zi
+        users, items = rows if rows is not None else (slice(None),) * 2
 
-        def t(a):
-            return torch.from_numpy(np.array(a, np.float32)).to(self.device)
+        def t(a, ids):
+            return torch.from_numpy(np.array(np.asarray(a)[ids],
+                                             np.float32)).to(self.device)
 
         return sgd_mf.MFState(
-            P=t(self.P), Q=t(self.Q), bu=t(bu), bi=t(bi),
+            P=t(self.P, users), Q=t(self.Q, items), bu=t(bu, users),
+            bi=t(bi, items),
             mu=torch.tensor(np.float32(
                 mu if mu is not None else (self.overall_bias or 0.0))))
 
@@ -273,15 +278,14 @@ class GDRecommender(MFRecommender):
     # -------------------------------------------------- funk_fused engine
     def _converge_feature(self, epoch, f, verbose):
         '''The funk tiers' per-feature rule (``mfrec_tpu/models/gd.py:
-        346-357``): ``epoch()`` runs one epoch of feature ``f`` and
-        returns its rmse (a device scalar, read once an epoch), until the
-        feature stops improving.'''
+        346-357``, ``serial_kernel.converge_continues``): ``epoch()`` runs
+        one epoch of feature ``f`` and returns its rmse (a device scalar,
+        read once an epoch), until the feature stops improving.'''
         rmse, ep = 2.0, 0
         rmse_last = rmse
-        while (ep < self.min_epochs
-               or rmse <= rmse_last - self.min_improvement):
-            if ep >= self.max_epochs:
-                break
+        while serial_kernel.converge_continues(
+                ep, rmse, rmse_last, self.min_epochs, self.max_epochs,
+                self.min_improvement):
             rmse_last = rmse
             rmse = float(epoch())
             self.rmse_history.append(rmse)
@@ -444,13 +448,21 @@ class GDRecommender(MFRecommender):
                   update_items=True, ratings=None):
         '''Feature-by-feature training with the reference's exact
         semantics (``mfrec_tpu/models/gd.py:883-941``): per feature, S1
-        epochs (one launch each on a CUDA model) until the feature
-        converges, then the feature is frozen into the rating cache.'''
+        epochs on P's and Q's column until the feature converges, then
+        the feature frozen into the rating cache (on a CUDA model one
+        launch for all of it, then one read of the epochs' rmse; the
+        stream's plan built once a call).  Only the rows the stream rates
+        go to the device and back: no rating touches the others.'''
         if ratings is None:
             uidx, iidx, vals = self.ratings.shuffled(
                 int(self.rng.integers(2**31)))
         else:
             uidx, iidx, vals = ratings
+        users, uidx = np.unique(np.asarray(uidx), return_inverse=True)
+        items, iidx = np.unique(np.asarray(iidx), return_inverse=True)
+        plan = (serial_kernel.serial_plan(uidx, iidx, bias_mode == 'learned',
+                                          self.device)
+                if self.device.type == 'cuda' and len(vals) else None)
 
         def t(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -459,32 +471,43 @@ class GDRecommender(MFRecommender):
         uidx, iidx, r = (t(uidx, np.int32), t(iidx, np.int32),
                          t(vals, np.float32))
         k = self.dimensionality
-        st = self._state(with_bias=(bias_mode != 'none'))
+        st = self._state(with_bias=(bias_mode != 'none'),
+                         rows=(users, items))
         P, Q, bu, bi = st.P, st.Q, st.bu, st.bi
         mu = float(st.mu)
         cache = torch.zeros(r.shape, dtype=torch.float32, device=self.device)
         self.rmse_history = []
         for f in range(k):
-            pf, qf = P[:, f].contiguous(), Q[:, f].contiguous()
-            self._converge_feature(lambda: sgd_mf.serial_feature_epoch(
-                pf, qf, cache, uidx, iidx, r, f, k, self.feature_init,
-                float(self.learning_rate), self.K, mu, bu, bi,
-                float(self.learning_rate_users),
+            hist = serial_kernel.serial_converge(
+                P[:, f], Q[:, f], cache, uidx, iidx, r, f, k,
+                self.feature_init, float(self.learning_rate), self.K, mu, bu,
+                bi, float(self.learning_rate_users),
                 float(self.learning_rate_items), self.K2, self.K3,
                 bias_mode=bias_mode, lo=self.min_rating, hi=self.max_rating,
                 update_users=update_users, update_items=update_items, P=P,
-                Q=Q)[4], f, verbose)
-            P[:, f] = pf
-            Q[:, f] = qf
-            if bias_mode != 'learned':
-                cache = sgd_mf.update_cache(pf, qf, cache, uidx, iidx, mu,
-                                            bu, bi, bias_mode=bias_mode,
-                                            lo=self.min_rating,
-                                            hi=self.max_rating)
-        self.P, self.Q = _host(P, self.nbr_users), _host(Q, self.nbr_items)
+                Q=Q, min_epochs=self.min_epochs, max_epochs=self.max_epochs,
+                min_improvement=self.min_improvement, update_cache=True,
+                plan=plan)[4]
+            self.rmse_history += hist
+            if verbose:
+                self.logger.info('feature %d epochs %d rmse %.5f', f,
+                                 len(hist), hist[-1] if hist else 2.0)
+
+        def back(full, n, ids, rows):
+            out = np.array(np.asarray(full)[:n], np.float32)
+            out[ids] = rows.cpu().numpy()
+            return out
+
+        self.P = back(self.P, self.nbr_users, users, P)
+        self.Q = back(self.Q, self.nbr_items, items, Q)
         if bias_mode == 'learned':
-            self.users_bias = _host(bu, self.nbr_users)
-            self.items_bias = _host(bi, self.nbr_items)
+            zu, zi = self._zero_biases()
+            self.users_bias = back(
+                zu if self.users_bias is None else self.users_bias,
+                self.nbr_users, users, bu)
+            self.items_bias = back(
+                zi if self.items_bias is None else self.items_bias,
+                self.nbr_items, items, bi)
 
     # ------------------------------------------------------------ training
     def feature_training(self, initialize_model=True, handle_bias=False,

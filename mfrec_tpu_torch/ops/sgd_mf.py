@@ -537,15 +537,11 @@ def serial_feature_epoch(pf, qf, cache, uidx, iidx, r, f, dim, f_init, lr, K,
 def update_cache(pf, qf, cache, uidx, iidx, mu, bu, bi, bias_mode='none',
                  lo=1.0, hi=5.0):
     '''Freeze feature f into the per-rating cache after it converges
-    (``mfrec_tpu/ops/sgd_mf.py:174-185``); order-independent, so one
-    vectorized pass.  Returns the new cache.'''
-    ul, il = uidx.long(), iidx.long()
-    if bias_mode == 'none':
-        alt = torch.ones_like(cache)
-    else:
-        alt = (float(mu) + bi[il]) + bu[ul]
-    base = torch.where(cache > 0, cache, alt)
-    return clamp(base + pf[ul] * qf[il], lo, hi)
+    (``mfrec_tpu/ops/sgd_mf.py:174-185``; ``serial_kernel.
+    cache_update_ref``, which S1 repeats on the card).  Returns the new
+    cache.'''
+    return serial_kernel.cache_update_ref(pf, qf, cache, uidx, iidx, mu, bu,
+                                          bi, bias_mode, lo, hi)
 
 
 # --------------------------------------------------------------------------

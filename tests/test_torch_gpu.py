@@ -997,10 +997,10 @@ def test_step_aggregate_kernel_matches_plain(cuda, kind, k, row_mean,
         assert torch.equal(a, b)
 
 
-# S1, the serial Funk feature epoch: the kernel against its plain version
-# bit for bit (both compute every step in f32 in one order, no FMA), for
-# every template instance: 3 bias modes x 4 fold-in masks x the columns
-# in shared or in device memory.
+# S1, the serial Funk tier: the kernel against its plain version bit for
+# bit (both compute every step in f32 in one order, no FMA), for every
+# template instance (3 bias modes x the row table in shared or in device
+# memory) and every fold-in mask, per epoch and converged.
 def _s1_case(cuda, U, I, n, k, seed):
     rng = np.random.default_rng(seed)
 
@@ -1034,11 +1034,11 @@ def _s1_run(fn, d, f, mode, upd_u, upd_i, **kw):
 def test_serial_funk_kernel_matches_plain(cuda, mode, masks, smem):
     from mfrec_tpu_torch.ops import serial_kernel as sk
     d = _s1_case(cuda, 120, 70, 700, 5, seed=3)
-    before = sk.serial_epoch.launches
+    before = sk.serial_converge.launches
     got = _s1_run(sk.serial_epoch, d, 2, mode, *masks, smem=smem)
     again = _s1_run(sk.serial_epoch, d, 2, mode, *masks, smem=smem)
     torch.cuda.synchronize()
-    assert sk.serial_epoch.launches == before + 2
+    assert sk.serial_converge.launches == before + 2
     want = _s1_run(sk.serial_feature_epoch_ref, d, 2, mode, *masks)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, w)
@@ -1058,11 +1058,92 @@ def test_serial_funk_kernel_short_streams(cuda, n):
             assert torch.equal(a, w)
 
 
+def _s1_converge_case(fn, d, f, mode, masks, **kw):
+    return _s1_run(fn, d, f, mode, *masks, min_epochs=3, max_epochs=40,
+                   min_improvement=3e-3, **kw)
+
+
+@pytest.mark.parametrize('smem', [True, False])
+@pytest.mark.parametrize('masks', [(True, True), (True, False),
+                                   (False, True), (False, False)])
+@pytest.mark.parametrize('mode', ['none', 'fixed', 'learned'])
+def test_serial_converge_kernel_matches_plain(cuda, mode, masks, smem):
+    '''The converge entry: one launch for the feature, its columns,
+    biases, every epoch's rmse and the epoch count those of the plain
+    loop under the same rule.'''
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    d = _s1_case(cuda, 90, 60, 300, 4, seed=11)
+    before = sk.serial_converge.launches
+    got = _s1_converge_case(sk.serial_converge, d, 1, mode, masks, smem=smem)
+    torch.cuda.synchronize()
+    assert sk.serial_converge.launches == before + 1
+    want = _s1_converge_case(sk.serial_converge_ref, d, 1, mode, masks)
+    assert 3 <= len(got[4]) == len(want[4])
+    assert got[4] == want[4]
+    for a, w in zip(got[:4], want[:4]):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('smem', [True, False])
+@pytest.mark.parametrize('mode', ['none', 'fixed', 'learned'])
+def test_serial_converge_on_columns_with_cache(cuda, mode, smem):
+    '''The model's call: the converge entry on P's and Q's column (stride
+    k) with the cache update in the launch, against its plain version:
+    P, Q, biases, cache, every epoch's rmse bit for bit; and a feature
+    that runs no epoch (max_epochs 0) still freezes into the cache, in
+    one launch of no epoch.'''
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    d = _s1_case(cuda, 90, 60, 400, 4, seed=21)
+
+    def run(fn, max_epochs, **kw):
+        P, Q = d['P'].clone(), d['Q'].clone()
+        cache, bu, bi = d['cache'].clone(), d['bu'].clone(), d['bi'].clone()
+        hist = fn(P[:, 2], Q[:, 2], cache, d['uidx'], d['iidx'], d['r'], 2,
+                  4, 0.1, 0.01, 0.02, 3.53, bu, bi, 0.005, 0.006, 0.012,
+                  0.004, bias_mode=mode, P=P, Q=Q, min_epochs=3,
+                  max_epochs=max_epochs, min_improvement=3e-3,
+                  update_cache=True, **kw)[4]
+        return hist, (P, Q, cache, bu, bi)
+
+    for max_epochs in (40, 0):
+        before = sk.serial_converge.launches
+        got = run(sk.serial_converge, max_epochs, smem=smem)
+        torch.cuda.synchronize()
+        assert sk.serial_converge.launches == before + (
+            1 if max_epochs or mode != 'learned' else 0)
+        want = run(sk.serial_converge_ref, max_epochs)
+        assert got[0] == want[0]
+        for a, w in zip(got[1], want[1]):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('n', [1, 20, 32, 33, 64, 97])
+def test_serial_converge_fold_in_streams(cuda, n):
+    '''A fold-in's stream (one user, distinct items; one item, distinct
+    users) converged in one launch, bit for bit, in both memory paths.'''
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    d = _s1_case(cuda, 120, 110, n, 4, seed=n)
+    for side, masks in ((0, (True, False)), (1, (False, True))):
+        ids = d['uidx' if side == 0 else 'iidx']
+        other = d['iidx' if side == 0 else 'uidx']
+        ids.fill_(7)
+        other.copy_(torch.randperm(110, device=cuda)[:n].int())
+        for smem in (True, False):
+            got = _s1_converge_case(sk.serial_converge, d, 0, 'fixed', masks,
+                                    smem=smem)
+            want = _s1_converge_case(sk.serial_converge_ref, d, 0, 'fixed',
+                                     masks)
+            assert got[4] == want[4]
+            for a, w in zip(got[:4], want[:4]):
+                assert torch.equal(a, w)
+
+
 def test_cuda_foldin_matches_cpu(cuda):
     '''add_user on a CUDA model (S1, then K3 for the new user's list)
     against the same fold-in on a CPU model from the same state: the new
-    row bit for bit, the same top-5.'''
+    row bit for bit, the same top-5; S1 launched once a feature.'''
     from mfrec_tpu_torch import interop
+    from mfrec_tpu_torch.ops import serial_kernel as sk
     rng = np.random.default_rng(0)
     U, I, k = 80, 60, 6
     u = rng.integers(0, U, 900).astype(np.int32)
@@ -1079,12 +1160,75 @@ def test_cuda_foldin_matches_cpu(cuda):
                                            'max_epochs': 30,
                                            'learning_rate': 0.01})
         m.seed(3)
+        before = sk.serial_converge.launches
         new = m.add_user('new', np.arange(7), np.full(7, 5.0))
-        out[dev] = (m.P[new].copy(), m.find_recommended_items(
+        if dev == 'cuda':
+            assert sk.serial_converge.launches == before + k
+        out[dev] = (m.P[new].copy(), m.rmse_history, m.find_recommended_items(
             user_index=new, nbr_recommendations=5,
             predictor='predict_rating_with_bias'))
     np.testing.assert_array_equal(out['cuda'][0], out['cpu'][0])
-    assert out['cuda'][1][0] == out['cpu'][1][0]
+    assert out['cuda'][1] == out['cpu'][1]
+    assert out['cuda'][2][0] == out['cpu'][2][0]
+
+
+def test_cuda_add_item_matches_cpu(cuda):
+    '''add_item on a CUDA model against a CPU model from the same
+    state: the new row and every epoch's rmse bit for bit.'''
+    from mfrec_tpu_torch import interop
+    rng = np.random.default_rng(5)
+    U, I, k = 70, 50, 5
+    u = rng.integers(0, U, 700).astype(np.int32)
+    i = rng.integers(0, I, 700).astype(np.int32)
+    v = rng.integers(1, 6, 700).astype(np.float32)
+    P = rng.normal(0, 0.1, (U, k)).astype(np.float32)
+    Q = rng.normal(0, 0.1, (I, k)).astype(np.float32)
+    bu = rng.normal(0, 0.2, U).astype(np.float32)
+    bi = rng.normal(0, 0.2, I).astype(np.float32)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        m = interop.from_numpy(P, Q, bu, bi, 3.5, (u, i, v), device=dev,
+                               parameters={'min_epochs': 3,
+                                           'max_epochs': 50,
+                                           'min_improvement': 1e-5,
+                                           'learning_rate': 0.02})
+        m.seed(4)
+        new = m.add_item('new', np.arange(0, 60, 2), np.full(30, 4.0))
+        out[dev] = (m.Q[new].copy(), m.rmse_history)
+    np.testing.assert_array_equal(out['cuda'][0], out['cpu'][0])
+    assert out['cuda'][1] == out['cpu'][1]
+
+
+@pytest.mark.parametrize('bias', ['none', 'fixed', 'learned'])
+def test_cuda_funk_engine_one_launch_a_feature(cuda, bias):
+    '''engine='funk' on a CUDA model: S1 launched once a feature, the
+    epochs and the factors those of a CPU model.'''
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops import serial_kernel as sk
+    rng = np.random.default_rng(2)
+    U, I, k = 60, 40, 3
+    u = rng.integers(0, U, 600).astype(np.int32)
+    i = rng.integers(0, I, 600).astype(np.int32)
+    v = rng.integers(1, 6, 600).astype(np.float32)
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        m = GDRecommender(U, I, {'nbr_features': k, 'engine': 'funk',
+                                 'min_epochs': 2, 'max_epochs': 25,
+                                 'learning_rate': 0.01}, device=dev)
+        m.seed(1)
+        m.set_ratings(u, i, v)
+        before = (sk.serial_converge.launches, sk.serial_converge.epochs)
+        if bias == 'learned':
+            m.feature_training_bias()
+        else:
+            m.train(handle_bias=bias == 'fixed')
+        if dev == 'cuda':
+            assert sk.serial_converge.launches == before[0] + k
+            assert sk.serial_converge.epochs == before[1] + len(
+                m.rmse_history)
+        outs[dev] = (m.P.copy(), m.Q.copy(), list(m.rmse_history))
+    for a, b in zip(outs['cuda'], outs['cpu']):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize('engine', ['fused', 'funk_fused'])
