@@ -8,6 +8,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --phases 1267 # ... and the SVD++ and FN slice
     python3 chip_smoke.py --phases 18   # ... the probe tools (P1, P2)
     python3 chip_smoke.py --phases 19   # ... example 2's workflow
+    python3 chip_smoke.py --phases 12k  # ... KMF's main path (S2, K1, K3)
     python3 chip_smoke.py --ab k1 A B B A   # K1 in checkouts A and B
     python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
@@ -115,6 +116,32 @@ Phase 9  the reference's main workflow on the card at full width
          count) and times the shuffled ML-100K-shape epoch with its
          bound, one rating's measured chain and the longest dependency
          chain.
+Phase k  KMF's main path on the card: (a) ``KMFRecommender.train()``
+         at phase 4's ML-10M shape, rank 64 (the JAX KMF bench's), the
+         shipped defaults otherwise (engine 'auto': K1's logistic build
+         with an f32 fixed side, T=64), timed as phase 4, every epoch's
+         RMSE against the bias-only floor, then
+         ``recommend_batch(predict_logistic)`` through K3 against the
+         plain top-n; (b) ``add_user`` with 20 ratings on that model
+         through S2 (the shipped 200 epochs in one launch), 3 calls
+         timed, the new row against a CPU model's plain path; (c)
+         ``engine='serial'`` on the ML-100K u1 train split at 40
+         features, cut to 3 epochs, S2's epoch timed (one a launch and 3
+         in one launch) beside its bound (bytes, or the stream's longest
+         dependency chain times one rating's chain as a probe apart from
+         S2 measures it), its first epoch against the plain version on
+         the CPU over the whole stream and, on the first 2,000 ratings,
+         on the card, bit for bit; (d) ``engine='fused'`` twice from one
+         seed, bit for bit; (e) ``tests/test_kmf.py``'s end-to-end
+         workflow on the card against the CPU (the host scoring path for
+         ``predict_linear_neg``, ``add_item``).  K1's, K3's and S2's
+         launches over (a)-(c).  K1's logistic f32 build as (a) called
+         it (the inputs of its first user and item half-passes,
+         recorded) against its plain version on the first batch of each
+         and the hot item's chain.  Phase 2 holds S2 to its plain version
+         bit for bit (both links x the fold-in masks x k in 1, 8, 40, 64,
+         66, 256; n = 1, 2, 3; one pair repeated; a fold-in stream; the
+         converge entry's rmse list and count; a diverging stream).
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
@@ -291,8 +318,8 @@ def ms_or_not(x, spec='%.4f ms'):
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
-        half_pass_kernel, half_pass_old_kernel, probe_kernel, \
-        serial_kernel, topn_kernel, window_agg_kernel
+        half_pass_kernel, half_pass_old_kernel, kmf_serial_kernel, \
+        probe_kernel, serial_kernel, topn_kernel, window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -302,10 +329,12 @@ def phase1():
     t0 = time.perf_counter()
     k1 = tuple(half_pass_kernel.LIBRARIES.values())
     names = ('topn',) + k1 + ('pcg', 'cg_bucket', 'window_agg',
-                              'half_pass_old', 'probe', 'serial_funk')
+                              'half_pass_old', 'probe', 'serial_funk',
+                              'kmf_serial')
     _cuda_build.build(names)
     for mod in (topn_kernel, cg_kernel, window_agg_kernel,
-                half_pass_old_kernel, probe_kernel, serial_kernel):
+                half_pass_old_kernel, probe_kernel, serial_kernel,
+                kmf_serial_kernel):
         mod._library()
     cg_kernel._bucket_library()
     for name in k1:
@@ -469,7 +498,7 @@ def kernel_case(name, B, I, k, n, L=0, fast=False, q_bf16=False, mode='bias',
 def phase2():
     return (phase2_topn(), phase2_half_pass(),
             {'pcg': phase2_pcg(), 'bucket': phase2_cg_bucket()},
-            phase2_window_agg(), phase2_serial())
+            phase2_window_agg(), phase2_serial(), phase2_kmf_serial())
 
 
 def one_past_split(B, n, slots, lo=2000, min_tiles=1):
@@ -1081,14 +1110,17 @@ def retrieval_vs_plain(m, users, predictors):
         idx, scores = m.recommend_batch(users, 10, predictor=predictor)
         if not np.isfinite(scores).all():
             raise SystemExit('non-finite scores from the trained model')
-        bu, bi, mu, _ = m._pallas_score_terms(m._predictor_mode(predictor))
+        bu, bi, mu, post = m._pallas_score_terms(
+            m._predictor_mode(predictor))
         ridx, rmask = topk.pad_rated_lists(m.ratings, users)
         ridx, rcnt = kernel_rated_lists(ridx, rmask)
         ref = topn_scores_ref(t(m.P[users]), t(m.Q), t(bu[users]), t(bi), mu,
                               11, t(ridx), t(rcnt))
-        ok, err, swaps = topn_agreement(idx, scores, ref[0].cpu(),
-                                        ref[1].cpu(), 10, EXACT_ATOL,
-                                        tie=EXACT_TIE)
+        ref_s = ref[1].cpu().numpy()
+        if post is not None:            # the monotone link, as the model
+            ref_s = post(ref_s)
+        ok, err, swaps = topn_agreement(idx, scores, ref[0].cpu(), ref_s, 10,
+                                        EXACT_ATOL, tie=EXACT_TIE)
         log('  recommend_batch(%d users, %s) from the trained model: ok=%s '
             'max_abs_err=%.3g swaps=%d' % (len(users), predictor, ok, err,
                                            swaps))
@@ -2426,15 +2458,17 @@ def k4_launches():
 
 def zero_launch_counts():
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.kmf_serial_kernel import kmf_serial_converge
     from mfrec_tpu_torch.ops.serial_kernel import serial_converge
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               window_aggregate, step_aggregate, serial_converge):
+               window_aggregate, step_aggregate, serial_converge,
+               kmf_serial_converge):
         fn.launches = 0
-    serial_converge.epochs = 0
+    serial_converge.epochs = kmf_serial_converge.epochs = 0
 
 
 def epochs_timed(train, history, card, device):
@@ -4072,6 +4106,638 @@ def serial_entry(s1, p9):
         'foldin_feature_us_rank64': fold.get('split', {}).get('feature_us')}]
 
 
+# ------------------------------------------------------------------- S2
+S2_KS = (1, 8, 40, 64, 66, 256)
+S2_MASKS = ((True, True), (True, False), (False, True))
+S2_RULES = ((12, 12, 0.0), (1, 60, 0.01))      # min_improvement None, float
+# KMF's phase: the JAX KMF bench's rank (bench.py:655-693) at the shipped
+# defaults otherwise; ML-100K at the shipped 40 features
+KMF_PARAMS = {'nbr_features': 64}
+KMF_SERIAL_EPOCHS = 3          # (c): engine='serial' cut to 3 epochs
+KMF_REDUCED = 2000             # (c): the first ratings, against the plain
+# version on the card (~1 ms a rating there); the whole stream's first
+# epoch is held to the plain version on the CPU (~0.2 ms a rating)
+# the fold-in's new row on the card against the CPU plain path: the same
+# f32 steps; the card's expf and the CPU's exp may differ by an ulp,
+# which 200 epochs may carry to a few ulps of the row
+KMF_FOLD_TOL = 1e-5
+# the end-to-end workflow of tests/test_kmf.py on the card against the
+# CPU: K1's f32 build against the CPU's XLA branch, 200 epochs; the
+# held-out RMSEs differ by 8.2e-5 on an H100 80GB HBM3 (700 W), about 3x
+# under this
+KMF_E2E_RMSE_TOL = 2.5e-4
+
+
+def s2_inputs(U, I, n, k, seed, device):
+    '''A seeded stream and state for S2: ids with repeats, ratings in [1,
+    5].'''
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dict(P=t(rng.normal(0, 0.1, (U, k)).astype(np.float32)),
+                Q=t(rng.normal(0, 0.1, (I, k)).astype(np.float32)),
+                bu=t(rng.normal(0, 0.1, U).astype(np.float32)),
+                bi=t(rng.normal(0, 0.1, I).astype(np.float32)),
+                uidx=t(rng.integers(0, U, n).astype(np.int32)),
+                iidx=t(rng.integers(0, I, n).astype(np.int32)),
+                r=t(rng.integers(1, 6, n).astype(np.float32)))
+
+
+def s2_call(fn, d, kernel, masks, lr=0.01, **kw):
+    '''``fn`` (an S2 entry or its plain version) on copies of ``d``'s
+    state at KMF's default rates; returns (P, Q, bu, bi, rmse or
+    history).'''
+    st = [d[x].clone() for x in ('P', 'Q', 'bu', 'bi')]
+    return fn(*st, d['uidx'], d['iidx'], d['r'], lr, 0.1, 0.1, 0.007,
+              kernel, 1.0, 5.0, *masks, **kw)
+
+
+def s2_compare(got, want):
+    '''(bit-identical, max abs err) of two S2 results.'''
+    import torch
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], want[:4]))
+    if isinstance(got[4], list):
+        same = same and np.array_equal(got[4], want[4], equal_nan=True)
+    else:
+        same = same and torch.equal(got[4], want[4])
+        err = max(err, float((got[4] - want[4]).abs()))
+    return same, err
+
+
+def s2_bound_ms(u, i, k, chain_ns):
+    '''S2's least time for an epoch of the stream (u, i): the larger of
+    its bytes over the card's rate (the ids and ratings, 12 bytes a
+    rating, read once; each distinct P and Q row and bias read and
+    written once) and its critical path (the stream's longest dependency
+    chain, ``serial_kernel.longest_chain``, times ``chain_ns``, one
+    rating's chain as ``kmf_serial_kernel.chain_latency_ns`` measures it
+    apart from S2).  Returns (ms, 'bytes' or 'operations', chain
+    ratings).'''
+    from mfrec_tpu_torch.ops import serial_kernel
+    nbytes = 12.0 * len(u) + 8.0 * (k + 1) * (len(np.unique(u))
+                                              + len(np.unique(i)))
+    depth = serial_kernel.longest_chain(u, i)
+    t_bytes, t_chain = nbytes / PEAK_BYTES * 1e3, depth * chain_ns / 1e6
+    return max(t_bytes, t_chain), \
+        'operations' if t_chain >= t_bytes else 'bytes', depth
+
+
+def phase2_kmf_serial(device='cuda'):
+    '''S2 (``csrc/kmf_serial.cu``) against its plain version on the card,
+    bit for bit: every link x fold-in mask x k in S2_KS over a 200-rating
+    stream (one epoch a launch); n = 1, 2, 3, a stream repeating one (u,
+    i), a fold-in stream of one user with a duplicated pair; the converge
+    entry's rmse list and epoch count under min_improvement None and a
+    float; a stream that diverges to a non-finite rmse.'''
+    import torch
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    card = card_line()
+    log('phase 2: S2 against its plain version on the card (bit for bit)')
+    worst, failed = 0.0, []
+
+    def check(name, got, want):
+        nonlocal worst
+        same, err = s2_compare(got, want)
+        worst = max(worst, err)
+        if not same:
+            failed.append(name)
+        return same, err
+
+    for k in S2_KS:
+        d = s2_inputs(30, 20, 200, k, k, device)
+        res = []
+        for kernel in ('logistic', 'linear'):
+            for masks in S2_MASKS:
+                res.append(check('k=%d %s %s' % (k, kernel, masks),
+                                 s2_call(sk.kmf_serial_epoch, d, kernel,
+                                         masks),
+                                 s2_call(sk.kmf_serial_epoch_ref, d, kernel,
+                                         masks)))
+        log('  k=%-3d 2 links x 3 masks, 200 ratings, one epoch: '
+            'bit-identical %d/6 (max abs err %.3g)'
+            % (k, sum(s for s, _ in res), max(e for _, e in res)))
+    streams = []
+    for n in (1, 2, 3):
+        streams.append(('n=%d' % n, s2_inputs(12, 40, n, 66, n, device)))
+    d = s2_inputs(12, 40, 33, 66, 5, device)
+    streams.append(('one (u, i) repeated', dict(
+        d, uidx=torch.full_like(d['uidx'], 3),
+        iidx=torch.full_like(d['iidx'], 5))))
+    fold = torch.randperm(40, device=device)[:20].int()
+    fold[19] = fold[4]
+    streams.append(('one user\'s fold-in, a pair twice', dict(
+        s2_inputs(12, 40, 20, 64, 6, device),
+        uidx=torch.full((20,), 7, dtype=torch.int32, device=device),
+        iidx=fold)))
+    for name, s in streams:
+        res = []
+        for kernel in ('logistic', 'linear'):
+            for masks in S2_MASKS:
+                kw = dict(min_epochs=3, max_epochs=3)
+                res.append(check(name, s2_call(sk.kmf_serial_converge, s,
+                                               kernel, masks, **kw),
+                                 s2_call(sk.kmf_serial_converge_ref, s,
+                                         kernel, masks, **kw)))
+        log('  %s, 3 epochs in one launch, 2 links x 3 masks: '
+            'bit-identical %d/6' % (name, sum(x for x, _ in res)))
+    d = s2_inputs(25, 18, 150, 8, 7, device)
+    for rule in S2_RULES:
+        for kernel in ('logistic', 'linear'):
+            kw = dict(min_epochs=rule[0], max_epochs=rule[1],
+                      min_improvement=rule[2])
+            got = s2_call(sk.kmf_serial_converge, d, kernel, (True, True),
+                          **kw)
+            same, _ = check('converge %s %s' % (rule, kernel), got,
+                            s2_call(sk.kmf_serial_converge_ref, d, kernel,
+                                    (True, True), **kw))
+            log('  converge entry, rule %s, %s: %d epochs in one launch, '
+                'rmse list and count bit-identical=%s' % (rule, kernel,
+                                                          len(got[4]), same))
+    kw = dict(min_epochs=30, max_epochs=30)        # linear, lr 0.3: inf
+    got = s2_call(sk.kmf_serial_converge, d, 'linear', (True, True), lr=0.3,
+                  **kw)
+    want = s2_call(sk.kmf_serial_converge_ref, d, 'linear', (True, True),
+                   lr=0.3, **kw)
+    same = len(got[4]) == len(want[4]) < 30 and \
+        not math.isfinite(got[4][-1]) and \
+        np.array_equal(got[4], want[4], equal_nan=True)
+    log('  a diverging stream: stopped after %d epochs on rmse %r (plain: '
+        '%d, %r), same=%s  [%s]' % (len(got[4]), got[4][-1], len(want[4]),
+                                    want[4][-1], same, card))
+    if not same:
+        failed.append('divergence')
+    if failed:
+        raise SystemExit('S2 differs from its plain version: %s' % failed)
+    return dict(max_abs_err=worst)
+
+
+def kmf_model(params, device, U, I, data):
+    '''A seeded ``KMFRecommender`` on ``device`` holding ``data``.'''
+    from mfrec_tpu_torch.models.kmf import KMFRecommender
+    m = KMFRecommender(U, I, dict(params), device=device)
+    m.seed(0)
+    m.set_ratings(*data)
+    return m
+
+
+def kmf_foldin(m, device):
+    '''(b): ``add_user`` with 20 ratings on the trained rank-64 model at
+    the shipped 200 epochs, 3 calls timed (S2 launches and rmse reads a
+    call); the first call's new row against a CPU model's plain path
+    from the same state.'''
+    import torch
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    card = card_line()
+    state = tuple(np.array(getattr(m, x)) for x in
+                  ('P', 'Q', 'users_bias', 'items_bias'))
+    rng = np.random.default_rng(4)
+    items = [rng.choice(m.nbr_items, 20, replace=False).astype(np.int32)
+             for _ in range(3)]
+    vals = [rng.integers(1, 6, 20).astype(np.float32) for _ in range(3)]
+    m.nbr_epochs = 200
+    times, launches, epochs, rows = [], [], [], []
+    for j in range(3):
+        m.seed(7 + j)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        before = sk.kmf_serial_converge.launches
+        t0 = time.perf_counter()
+        new = m.add_user('fold-%d' % j, items[j], vals[j])
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(sk.kmf_serial_converge.launches - before)
+        epochs.append(len(m.rmse_history))
+        rows.append(m.P[new].copy())
+    return dict(times=times, launches=launches, epochs=epochs, rows=rows,
+                state=state, items=items, vals=vals, card=card)
+
+
+def kmf_foldin_vs_cpu(m, fold):
+    '''(b), the check: the first fold-in again on a CPU model built from
+    the trained state (``interop.from_numpy``), its plain path.'''
+    from mfrec_tpu_torch import interop
+    from mfrec_tpu_torch.models.kmf import KMFRecommender
+    P, Q, bu, bi = fold['state']
+    c = interop.from_numpy(P, Q, bu, bi, m.overall_bias, m.ratings.coo(),
+                           device='cpu', model_class=KMFRecommender,
+                           parameters={'nbr_epochs': 200})
+    c.seed(7)
+    t0 = time.perf_counter()
+    new = c.add_user('fold-0', fold['items'][0], fold['vals'][0])
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(c.P[new] - fold['rows'][0]).max())
+    same = np.array_equal(c.P[new], fold['rows'][0])
+    return err, same, cpu_ms
+
+
+class K1Recorder:
+    """While open, the alternating epoch's K1 calls go through a wrapper
+    that keeps the inputs of the first ``count`` (the factors it updates
+    and the fixed side, cloned before the launch, and the other
+    arguments) and then launches K1 as before.  The epoch reaches K1 as
+    ``sgd_mf.half_pass_kernel.half_pass``; that name is swapped for the
+    time the recorder is open."""
+
+    def __init__(self, count=2):
+        self.count, self.calls = count, []
+
+    def __enter__(self):
+        from mfrec_tpu_torch.ops import half_pass_kernel, sgd_mf
+        calls, count = self.calls, self.count
+        real = half_pass_kernel.half_pass
+
+        class Module:
+            def __getattr__(self, name):
+                return getattr(half_pass_kernel, name)
+
+            @staticmethod
+            def half_pass(F_upd, F_fix, *args, **kw):
+                if len(calls) < count:
+                    calls.append((F_upd.clone(), F_fix.clone(), args, kw))
+                return real(F_upd, F_fix, *args, **kw)
+
+        sgd_mf.half_pass_kernel = Module()
+        return self
+
+    def __exit__(self, *exc):
+        from mfrec_tpu_torch.ops import half_pass_kernel, sgd_mf
+        sgd_mf.half_pass_kernel = half_pass_kernel
+        return False
+
+
+def k1_kmf_cases(calls, hot, device='cuda'):
+    """K1 as KMF's ``train()`` called it (phase k (a)): the recorded inputs
+    of an epoch's user and item half-passes (the logistic link, f32 fixed
+    side), on the first batch of each layout and on every batch holding
+    the most-rated item ``hot`` (its chain), the kernel against
+    ``half_pass_ref`` on the card at K1's window and SSE tolerances, a
+    second launch bit-identical.  Returns the records."""
+    import torch
+    from mfrec_tpu_torch.ops.half_pass_kernel import build_segments, \
+        half_pass, half_pass_ref
+    if len(calls) != 2:
+        raise SystemExit('KMF\'s train() made %d K1 calls, not an epoch\'s '
+                         'two' % len(calls))
+    dev = torch.device(device)
+    (Pu, Pfix, uargs, ukw), (Qi, Qfix, iargs, ikw) = calls
+    fix, r, m, kl, lo = iargs[0]
+    rows = lo[:, None].long() + kl.long()
+    hot_b = torch.nonzero(((rows == hot) & (m > 0)).any(1)).flatten()
+    cases = [('user batch 0', Pu, Pfix, uargs, ukw, torch.tensor([0])),
+             ('item batch 0', Qi, Qfix, iargs, ikw, torch.tensor([0])),
+             ('hot item %d chain (%d batches)' % (hot, hot_b.numel()), Qi,
+              Qfix, iargs, ikw, hot_b.cpu())]
+    recs = []
+    for name, F0, Ffix, args, kw, idx in cases:
+        batches, W, rest = args[0], args[1], args[2:]
+        link = rest[-1]
+        sub = tuple(t[idx.to(t.device)] for t in batches)
+        seg = build_segments(*(t.cpu().numpy() for t in sub), W, dev)
+        kw = dict(kw, segments=seg)
+        Fk = F0.clone()
+        sse_k = float(half_pass(Fk, Ffix, sub, W, *rest, **kw))
+        again = F0.clone()
+        sse_a = float(half_pass(again, Ffix, sub, W, *rest, **kw))
+        Fp = F0.clone()
+        sse_p = float(half_pass_ref(Fp, Ffix, sub, W, *rest))
+        diff = (Fk - Fp).abs()
+        err = float(diff.max())
+        sse_err = abs(sse_k - sse_p) / abs(sse_p) if sse_p else abs(sse_k)
+        ok = bool((diff <= K1_ATOL + K1_RTOL * Fp.abs()).all()) and \
+            bool(torch.isfinite(Fk).all()) and np.isfinite(sse_k) and \
+            sse_err <= K1_SSE_RTOL and float((Fk - F0).abs().max()) > 0 \
+            and bool(torch.equal(again, Fk)) and sse_a == sse_k and \
+            link == 'logistic' and Ffix.dtype == torch.float32
+        recs.append({'case': 'KMF ' + name, 'k': int(F0.shape[1]),
+                     'T': int(rest[3]), 'ratings': int(seg.ent_r.numel()),
+                     'link': link, 'fixed_side': str(Ffix.dtype),
+                     'ok': ok, 'max_abs_err': err, 'sse_rel_err': sse_err})
+        log('  K1 as train() called it, %-32s link %s, fixed side %s, k=%d, '
+            'T=%d, %d ratings: ok=%s max_abs_err=%.3g sse_rel_err=%.3g'
+            % (name, link, Ffix.dtype, F0.shape[1], rest[3],
+               seg.ent_r.numel(), ok, err, sse_err))
+        del Fk, again, Fp, diff
+    bad = [r['case'] for r in recs if not r['ok']]
+    if bad:
+        raise SystemExit('K1 at KMF\'s layouts differs from its plain '
+                         'version: %s' % bad)
+    return recs
+
+
+def phasek(device='cuda', U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz']):
+    '''KMF's main path on the card: (a) ``KMFRecommender.train()`` at the
+    ML-10M shape, rank 64, engine 'auto' (K1's logistic build, f32 fixed
+    side), timed as phase 4, then ``recommend_batch(predict_logistic)``
+    through K3 against the plain top-n; (b) ``add_user`` with 20 ratings
+    on that model through S2 (200 epochs, one launch), against a CPU
+    model's plain path; (c) ``engine='serial'`` at the ML-100K shape (u1
+    train split, 40 features, cut to KMF_SERIAL_EPOCHS), S2's epoch timed
+    beside its bound and the plain version (on the first KMF_REDUCED
+    ratings); (d) ``engine='fused'`` twice from one seed, bit for bit;
+    (e) the workflow of ``tests/test_kmf.py::test_kmf_model_end_to_end``
+    on the card against the CPU.  The launch counts are set to 0 before
+    (a) and read after (c)'s training, the path this phase drives.'''
+    import torch
+    from mfrec_tpu_torch.data import ml100k_like
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
+    card = card_line()
+    t_phase = time.perf_counter()
+    u, i, v = ratings_stream(U, I, nnz)
+    m = kmf_model(KMF_PARAMS, device, U, I, (u, i, v))
+    uu, ii, vv = m.ratings.coo()
+    floor = bias_floor_rmse(uu, ii, vv, U, I)
+    log('phase k: KMFRecommender(%d, %d, rank %d).train() on %s, %d '
+        'ratings, engine %s, batch %d, T=%d, K_users %g, K_items %g, lr '
+        '%s (row-mean default); bias-only floor %.4f (%.1f s to build)'
+        % (U, I, m.dimensionality, device, m.ratings.nnz, m.engine,
+           m.batch_size, m.inner_steps, m.K_users, m.K_items, m._alt_lr(),
+           floor, time.perf_counter() - t_phase))
+
+    def train(epochs):
+        m.nbr_epochs = epochs
+        m.train()
+
+    zero_launch_counts()
+    with K1Recorder() as k1_calls:
+        res = epochs_timed(train, lambda: m.rmse_history, card, device)
+    hist, h5 = res['hist'], res['rmse']
+    log('  (a) rmse per epoch (last 5-epoch run): %s; epoch %.4f s (median '
+        'of 3), final rmse %.4f vs floor %.4f  [%s]'
+        % (' '.join('%.4f' % x for x in h5), res['epoch_s'], h5[-1], floor,
+           card))
+    if not all(np.isfinite(hist)):
+        raise SystemExit('non-finite KMF training RMSE: %s' % hist)
+    if not h5[-1] < floor:
+        raise SystemExit('KMF: final RMSE %.4f does not beat the bias-only '
+                         'floor %.4f' % (h5[-1], floor))
+    users = np.random.default_rng(3).choice(U, 256, replace=False)
+    retrieval_vs_plain(m, users, ('predict_logistic',))
+    fold = kmf_foldin(m, device)
+    (tu, ti, tv), u_test = ml100k_like.u1_split(seed=0)
+    U1, I1 = ml100k_like.N_USERS, ml100k_like.N_ITEMS
+    ms = kmf_model({'engine': 'serial', 'nbr_epochs': KMF_SERIAL_EPOCHS},
+                   device, U1, I1, (tu, ti, tv))
+    t0 = time.perf_counter()
+    ms.train()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    launches = {'k1': half_pass.launches, 'k3': topn_scores_kernel.launches,
+                's2': sk.kmf_serial_converge.launches}
+    s2_epochs = sk.kmf_serial_converge.epochs
+    log('  (b) add_user with 20 ratings on the rank-%d model: %s ms a call '
+        '(%s epochs, %s S2 launches and as many rmse reads)  [%s]'
+        % (m.dimensionality, ' '.join('%.2f' % x for x in fold['times']),
+           ' '.join(str(x) for x in fold['epochs']),
+           ' '.join(str(x) for x in fold['launches']), card))
+    log('  (c) engine=\'serial\' on the ML-100K u1 train split (%d x %d, %d '
+        'ratings, %d features, cut to %d epochs): %.3f s, rmse %s'
+        % (U1, I1, len(tv), ms.dimensionality, KMF_SERIAL_EPOCHS, serial_s,
+           ' '.join('%.4f' % x for x in ms.rmse_history)))
+    log('  launches over (a)-(c): K1 %d, K3 %d, S2 %d (%d serial epochs)'
+        % (launches['k1'], launches['k3'], launches['s2'], s2_epochs))
+    if device == 'cuda' and min(launches.values()) == 0:
+        raise SystemExit('KMF\'s path never launched a kernel of its path: '
+                         '%s' % launches)
+    if device == 'cuda' and launches['s2'] != 4:
+        raise SystemExit('S2 launched %d times for 3 fold-ins and one '
+                         'serial train() (one a call)' % launches['s2'])
+    if not (np.isfinite(ms.rmse_history).all()
+            and len(ms.rmse_history) == KMF_SERIAL_EPOCHS):
+        raise SystemExit('engine=\'serial\': %s' % ms.rmse_history)
+    err, same, cpu_ms = kmf_foldin_vs_cpu(m, fold)
+    log('  (b) the new row against a CPU model\'s plain path from the same '
+        'state: bit-identical=%s, max abs err %.3g (tolerance %g); the CPU '
+        'fold-in %.1f ms' % (same, err, KMF_FOLD_TOL, cpu_ms))
+    if not err <= KMF_FOLD_TOL:
+        raise SystemExit('the KMF fold-in on the card differs from the CPU '
+                         'plain path')
+    hot = int(np.bincount(ii, minlength=I).argmax())
+    k1 = k1_kmf_cases(k1_calls.calls, hot, device)
+    s2 = kmf_serial_timing(ms, (tu, ti, tv), device)
+    fused = kmf_fused_twice((tu, ti, tv), U1, I1, device)
+    e2e = kmf_workflow(device)
+    log('  phase k in %.1f s  [%s]' % (time.perf_counter() - t_phase, card))
+    return dict(launches=launches, s2_epochs=s2_epochs,
+                epoch_s=res['epoch_s'], epoch_s_blocks=res['epoch_s_blocks'],
+                rmse=h5, floor=floor, add_ms=float(np.median(fold['times'])),
+                add_ms_all=fold['times'], fold_err=err, serial_s=serial_s,
+                s2=s2, fused=fused, e2e=e2e, k1=k1)
+
+
+def kmf_serial_timing(ms, data, device):
+    '''(c), the measurement: S2 on the stream ``engine='serial'`` walks
+    (the u1 train split shuffled by the model's first draw from seed 0)
+    at 40 features from the model's init draw: one epoch a launch and
+    KMF_SERIAL_EPOCHS in one launch (CUDA events; device time), ns a
+    rating, beside the bound; the first epoch's state against the plain
+    version on the CPU over the whole stream (within KMF_FOLD_TOL: the
+    card's expf and the CPU's exp may differ by an ulp) and on the card
+    over the first KMF_REDUCED ratings (bit for bit), both timed.'''
+    import torch
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    from mfrec_tpu_torch.models.kmf import KMFRecommender
+    card = card_line()
+    U, I = ms.nbr_users, ms.nbr_items
+    m = KMFRecommender(U, I, {'engine': 'serial'}, device='cpu')
+    m.seed(0)
+    m.set_ratings(*data)
+    m.init_feature_normal(0.0, 0.1)
+    u, i, r = m.ratings.shuffled(int(m.rng.integers(2 ** 31)))
+    k = m.dimensionality
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.array(a, dtype)).to(device)
+
+    base = dict(P=t(m.P), Q=t(m.Q), bu=t(np.zeros(U, np.float32)),
+                bi=t(np.zeros(I, np.float32)), uidx=t(u, np.int32),
+                iidx=t(i, np.int32), r=t(r, np.float32))
+    n = len(r)
+    kw = dict(min_epochs=KMF_SERIAL_EPOCHS, max_epochs=KMF_SERIAL_EPOCHS)
+
+    def one():
+        return s2_call(sk.kmf_serial_epoch, base, 'logistic', (True, True))
+
+    def many():
+        return s2_call(sk.kmf_serial_converge, base, 'logistic',
+                       (True, True), **kw)
+
+    epoch_ms = timed_ms(one, 5)
+    dev_ms, dev_n = kernel_device_ms(one, 'kmf_serial', 3)
+    conv_ms = timed_ms(many, 3)
+    chain = sk.chain_latency_ns(k, 'logistic', device)
+    bound, bound_by, depth = s2_bound_ms(u, i, k, chain)
+    full = [x.cpu() for x in one()]
+    cpu = {x: v.cpu() for x, v in base.items()}
+    t0 = time.perf_counter()
+    want_full = s2_call(sk.kmf_serial_epoch_ref, cpu, 'logistic',
+                        (True, True))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    full_same, full_err = s2_compare(full, want_full)
+    red = dict(base, uidx=base['uidx'][:KMF_REDUCED],
+               iidx=base['iidx'][:KMF_REDUCED], r=base['r'][:KMF_REDUCED])
+    got = s2_call(sk.kmf_serial_epoch, red, 'logistic', (True, True))
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    want = s2_call(sk.kmf_serial_epoch_ref, red, 'logistic', (True, True))
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same, err = s2_compare(got, want)
+    red_ms = timed_ms(lambda: s2_call(sk.kmf_serial_epoch, red, 'logistic',
+                                      (True, True)), 5)
+    ru, ri = u[:KMF_REDUCED], i[:KMF_REDUCED]
+    red_bound, red_by, red_depth = s2_bound_ms(ru, ri, k, chain)
+    log('  (c) S2 at the ML-100K shape (%d ratings shuffled, %d x %d, k=%d, '
+        'logistic): one epoch a launch %.4f ms (events), %s device (%d '
+        'launches recorded), %.1f ns a rating; %d epochs in one launch '
+        '%.4f ms, %.4f an epoch; bound %.4f ms (%s: longest dependency '
+        'chain %d ratings x one rating\'s chain %.1f ns, the probe)  [%s]'
+        % (n, U, I, k, epoch_ms, ms_or_not(dev_ms), dev_n,
+           epoch_ms * 1e6 / n, KMF_SERIAL_EPOCHS, conv_ms,
+           conv_ms / KMF_SERIAL_EPOCHS, bound, bound_by, depth, chain, card))
+    log('  (c) the whole stream\'s first epoch against the plain version on '
+        'the CPU (%.0f ms there): bit-identical=%s, max abs err %.3g '
+        '(tolerance %g)' % (cpu_ms, full_same, full_err, KMF_FOLD_TOL))
+    if not full_err <= KMF_FOLD_TOL:
+        raise SystemExit('S2 differs from its plain version on the CPU over '
+                         'the ML-100K epoch')
+    log('  (c) the first %d ratings of that stream, the first epoch from '
+        'the model\'s init: S2 against its plain version on the card '
+        'bit-identical=%s (max abs err %.3g); S2 %.4f ms, plain %.1f ms, '
+        'bound %.5f ms (%s, chain %d)  [%s]'
+        % (KMF_REDUCED, same, err, red_ms, plain_ms, red_bound, red_by,
+           red_depth, card))
+    if not same:
+        raise SystemExit('S2 differs from its plain version on the ML-100K '
+                         'stream')
+    return dict(epoch_ms=epoch_ms, device_ms=dev_ms, converged_ms=conv_ms,
+                ns_a_rating=epoch_ms * 1e6 / n, bound_ms=bound,
+                bound_by=bound_by, longest_chain=depth, chain_ns=chain,
+                n=n, k=k, reduced_ms=red_ms, reduced_plain_ms=plain_ms,
+                reduced_bound_ms=red_bound, reduced_bound_by=red_by,
+                max_abs_err=err, full_cpu_err=full_err,
+                full_cpu_same=full_same, full_cpu_plain_ms=cpu_ms)
+
+
+def kmf_fused_twice(data, U, I, device):
+    '''(d): ``engine='fused'`` on the ML-100K split twice from one seed (3
+    epochs, the shipped defaults otherwise), P, Q and biases bit for
+    bit.'''
+    runs = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        m = kmf_model({'engine': 'fused', 'nbr_epochs': 3}, device, U, I,
+                      data)
+        m.train()
+        runs.append(m)
+    same = all(np.array_equal(getattr(runs[0], x), getattr(runs[1], x))
+               for x in ('P', 'Q', 'users_bias', 'items_bias')) and \
+        runs[0].rmse_history == runs[1].rmse_history
+    log('  (d) engine=\'fused\' trained twice from one seed (3 epochs, %.2f '
+        's): rmse %s, P, Q and biases bit-identical=%s'
+        % (time.perf_counter() - t0, ' '.join(
+            '%.4f' % x for x in runs[0].rmse_history), same))
+    if not (same and np.isfinite(runs[0].rmse_history).all()):
+        raise SystemExit('the KMF fused tier does not repeat on the card')
+    return dict(rmse=runs[0].rmse_history, same=same)
+
+
+def kmf_workflow(device):
+    '''(e): ``tests/test_kmf.py::test_kmf_model_end_to_end`` on the card
+    and on the CPU (train, ``test_predict_rating(predict_logistic)``,
+    ``find_recommended_items(predict_linear_neg)`` through the host
+    scoring path, ``add_item``): the held-out RMSEs within
+    KMF_E2E_RMSE_TOL, both under the constant-mean baseline; the host
+    path's lists and ``add_item`` from the card model's state on the CPU
+    model, equal.'''
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings, \
+        train_test_split
+    from mfrec_tpu_torch.eval.metrics import test_predict_rating
+    (u, i, v), test = train_test_split(*synthetic_ratings(
+        nbr_users=300, nbr_items=200, nbr_ratings=6000, rank=6, seed=1),
+        test_fraction=0.2, seed=2)
+    U, I = int(u.max()) + 1, int(i.max()) + 1
+    params = {'nbr_epochs': 200, 'nbr_features': 8, 'learning_rate': 0.02,
+              'regularization_users': 0.05, 'regularization_items': 0.05,
+              'inner_steps': 8}
+    out = {}
+    for dev in (device, 'cpu'):
+        m = kmf_model(params, dev, U, I, (u, i, v))
+        t0 = time.perf_counter()
+        m.train()
+        train_s = time.perf_counter() - t0
+        rmse = test_predict_rating(m, test, nbr_samples=len(test),
+                                   predictor='predict_logistic',
+                                   quiet=True)[0]
+        out[dev] = (m, rmse, train_s)
+    (c, rc, tc), (p, rp, tp) = out[device], out['cpu']
+    base = float(np.sqrt(((test[:, 2] - v.mean()) ** 2).mean()))
+    for name in ('P', 'Q', 'users_bias', 'items_bias'):
+        setattr(p, name, np.array(getattr(c, name)))
+    lists = [m.find_recommended_items(7, nbr_recommendations=10,
+                                      predictor='predict_linear_neg')
+             for m in (c, p)]
+    rows = []
+    for m in (c, p):
+        m.seed(2)
+        new = m.add_item('new-item', np.arange(6, dtype=np.int32),
+                         np.full(6, 4.0, np.float32))
+        rows.append(m.Q[new].copy())
+    err = float(np.abs(rows[0] - rows[1]).max())
+    log('  (e) tests/test_kmf.py\'s workflow: held-out rmse %.7f on the card '
+        '(train %.2f s), %.7f on the CPU (%.2f s), card - CPU %.3g '
+        '(tolerance %g), baseline %.4f; predict_linear_neg top-10 from the '
+        'host path %s, the same on the CPU=%s; add_item\'s row card - CPU '
+        '%.3g' % (rc, tc, rp, tp, rc - rp, KMF_E2E_RMSE_TOL, base,
+                  lists[0][0], lists[0] == lists[1], err))
+    if not (rc < base and rp < base and abs(rc - rp) <= KMF_E2E_RMSE_TOL
+            and lists[0] == lists[1] and len(lists[0][0]) == 10
+            and err <= KMF_FOLD_TOL):
+        raise SystemExit('KMF\'s workflow on the card disagrees with the CPU')
+    return dict(rmse=rc, rmse_cpu=rp, baseline=base, add_item_err=err)
+
+
+def kmf_entry(s2, pk):
+    '''S2's entry of the kernels line: the kernel and its plain version on
+    the first KMF_REDUCED ratings of the ML-100K stream (phase k (c)),
+    the full epoch beside them, the launches of phase k's path.'''
+    if not pk:
+        return []
+    t = pk['s2']
+    return [{
+        'name': 'kmf_serial (S2, a call\'s serial kernel-MF epochs and '
+                'their convergence rule; no TPU counterpart)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/kmf_serial.cu',
+        'replaces': 'mfrec_tpu/ops/kmf.py:34 (kmf_serial_epoch, a '
+                    'lax.fori_loop outside any Pallas kernel; the driver '
+                    'loop around it, mfrec_tpu/models/kmf.py:333)',
+        'launches': pk['launches']['s2'],
+        'max_abs_err': max(s2.get('max_abs_err', 0.0), t['max_abs_err'],
+                           pk['fold_err'], t['full_cpu_err']),
+        'ms': t['reduced_ms'], 'plain_ms': t['reduced_plain_ms'],
+        'bound_ms': t['reduced_bound_ms'], 'bound_by': t['reduced_bound_by'],
+        'library_ms': None,
+        'shape': 'one epoch over the first %d ratings of the ML-100K u1 '
+                 'train split shuffled, k=40, logistic' % KMF_REDUCED,
+        'epoch_ms_ml100k': t['epoch_ms'], 'device_ms_ml100k': t['device_ms'],
+        'ns_a_rating': t['ns_a_rating'], 'bound_ms_ml100k': t['bound_ms'],
+        'chain_ns': t['chain_ns'], 'longest_chain': t['longest_chain'],
+        'max_abs_err_ml100k_vs_cpu': t['full_cpu_err'],
+        'plain_ms_ml100k_cpu': t['full_cpu_plain_ms'],
+        'add_user_ms_rank64': pk['add_ms'],
+        'serial_epochs_phase_k': pk['s2_epochs']}]
+
+
 def ab_layouts(path):
     '''The W=128 ML-10M user and item layouts and the most-rated item,
     built once by the process that starts the A/B and loaded by each
@@ -4498,7 +5164,7 @@ def ab_main(mode, checkouts, child):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[1])
-    ap.add_argument('--phases', default='123456789',
+    ap.add_argument('--phases', default='123456789k',
                     help='which phases to run (default: all)')
     ap.add_argument('--ab', choices=AB_MODES,
                     help='instead of the phases, time K1, K3, K4, S1 or the '
@@ -4522,9 +5188,9 @@ def main(argv=None):
         return ab_main(args.ab, args.checkouts, args.ab_child)
     if '1' in args.phases:
         phase1()
-    k3_recs, (k1_recs, k1_time), k2_recs, k4, s1 = phase2() \
+    k3_recs, (k1_recs, k1_time), k2_recs, k4, s1, s2 = phase2() \
         if '2' in args.phases else ([], ([], {}), {'pcg': [], 'bucket': []},
-                                    {}, {})
+                                    {}, {}, {})
     launches, worst = phase3() if '3' in args.phases else (None, 0.0)
     train = phase4() if '4' in args.phases else {}
     als = phase5() if '5' in args.phases else {}
@@ -4532,6 +5198,7 @@ def main(argv=None):
     fn = phase7() if '7' in args.phases else {}
     p8 = phase8() if '8' in args.phases else {}
     p9 = phase9() if '9' in args.phases else {}
+    pk = phasek() if 'k' in args.phases else {}
     if k3_recs:
         main1 = k1_recs[0]
         print(json.dumps({'kernels': k3_entry(k3_recs, launches, worst) + [{
@@ -4540,7 +5207,8 @@ def main(argv=None):
             'source': 'mfrec_tpu_torch/csrc/half_pass.cuh',
             'replaces': 'mfrec_tpu/ops/pallas_half_pass.py:274',
             'launches': train.get('k1_launches'),
-            'max_abs_err': max(r['max_abs_err'] for r in k1_recs),
+            'max_abs_err': max(r['max_abs_err']
+                               for r in k1_recs + pk.get('k1', [])),
             'ms': main1['ms'], 'plain_ms': main1['plain_ms'],
             'bound_ms': main1['bound_ms'], 'bound_by': main1['bound_by'],
             'library_ms': None,
@@ -4554,9 +5222,14 @@ def main(argv=None):
             'ms_half_pass_item_logistic': k1_time['logistic']['item'],
             'ms_longest_chain_logistic': k1_time['logistic']['chain'],
             'epoch_s': train.get('epoch_s'),
-            'launches_phase8': p8.get('launches', {}).get('k1')}]
+            'launches_phase8': p8.get('launches', {}).get('k1'),
+            'launches_kmf': pk.get('launches', {}).get('k1'),
+            'max_abs_err_kmf': max((r['max_abs_err'] for r in
+                                    pk.get('k1', [])), default=None),
+            'epoch_s_kmf': pk.get('epoch_s')}]
             + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)
-            + probe_entries(p8) + serial_entry(s1, p9)}))
+            + probe_entries(p8) + serial_entry(s1, p9)
+            + kmf_entry(s2, pk)}))
     log(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

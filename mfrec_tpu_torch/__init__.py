@@ -3,26 +3,36 @@ mfrec_tpu_torch — the PyTorch/CUDA port of ``mfrec_tpu``.
 
 The port runs beside the JAX package, which stays the reference it is
 tested against.  It imports torch and numpy, never jax or mfrec_tpu.
-What is ported so far:
+Each TPU kernel of the JAX package, and each sequential loop that a CUDA
+model cannot run as torch ops, is a CUDA kernel written by hand for
+Hopper (``csrc/``, built with nvcc at first use), with a plain PyTorch
+version beside it that CPU tensors run.  What is ported so far:
 
-* the serving slice: the ratings store, the checkpoint format,
-  ``GDRecommender``'s predictors and batched top-N retrieval (the
-  hand-written CUDA kernel K3 on a GPU, in ``csrc/topn.cu``), similarity
-  search and the HTTP server;
-* the training slice: ``GDRecommender.train()`` /
-  ``feature_training_bias()`` on the single-device sorted-window
-  alternating engine, whose batch step is the hand-written CUDA kernel
-  K1 on a GPU (``csrc/half_pass.cu``);
-* the WRMF/ALS slice: ``WRMFRecommender.train()`` on the single-device
-  nnz-bucket half-sweeps, exact (batched Cholesky) or CG, whose PCG
-  iterations are the hand-written CUDA kernel K2 on a GPU
-  (``csrc/pcg.cu``), and ``eval.metrics.precision_recall``;
-* the SVD++ and FN slice: ``GDRecommender.feature_training_implicit()``
-  and ``FNRecommender.train()`` on the sorted-window tiers, whose
-  aggregation phases are the hand-written CUDA kernel K4 on a GPU
-  (``csrc/window_agg.cu``) around K1's half-passes.
+* serving: the ratings store, the checkpoint format, the predictors and
+  batched top-N retrieval (K3, ``csrc/topn.cu``; a predictor without a
+  score mode scores every unrated item on the host), similarity search
+  and the HTTP server;
+* ``GDRecommender``: ``train()`` on the sorted-window alternating engine,
+  whose batch step is K1 (``csrc/half_pass.cuh``, four builds: link x the
+  fixed side's type); the ``'fused'`` and ``'funk_fused'`` mini-batch
+  engines (fixed-order scatter-adds); ``'funk'``, the fold-ins and the
+  reference's main workflow through S1 (``csrc/serial_funk.cu``);
+  ``feature_training_implicit()`` (SVD++), whose aggregation phases are
+  K4 (``csrc/window_agg.cu``) around K1; evaluation and the sweeps;
+* ``WRMFRecommender.train()`` on the nnz-bucket half-sweeps, one fused K2
+  launch a bucket (``csrc/cg_bucket.cu``; its PCG in ``csrc/pcg.cuh``,
+  shared with the M-given entry ``csrc/pcg.cu``), and
+  ``eval.metrics.precision_recall``;
+* ``FNRecommender.train()`` through K1 and K4, or its mini-batch tier;
+* ``KMFRecommender``: the alternating engine through K1's logistic and
+  identity builds with an f32 fixed side, the mini-batch engine, and
+  ``engine='serial'`` and every fold-in through S2
+  (``csrc/kmf_serial.cu``);
+* the probe tools (``tools.ab_kernel``, ``tools.kernel_probe``) through
+  P1 (``csrc/half_pass_old.cu``) and P2 (``csrc/probe.cu``).
 
-Models take ``device='cuda'`` (default) or ``device='cpu'``.
+Models take ``device='cuda'`` (default) or ``device='cpu'``: a CUDA model
+always runs the kernels, a CPU model their plain versions.
 '''
 
 __version__ = '0.1.0'
@@ -32,9 +42,10 @@ from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.models.gd import GDRecommender
 from mfrec_tpu_torch.models.wrmf import WRMFRecommender
 from mfrec_tpu_torch.models.fn import FNRecommender
+from mfrec_tpu_torch.models.kmf import KMFRecommender
 from mfrec_tpu_torch.serving import RecommenderServer
 from mfrec_tpu_torch import interop
 
 __all__ = ['BaseRecommender', 'DefaultRate', 'Error', 'MFRecommender',
            'GDRecommender', 'WRMFRecommender', 'FNRecommender',
-           'RecommenderServer', 'interop']
+           'KMFRecommender', 'RecommenderServer', 'interop']

@@ -11,7 +11,7 @@ Both entry points take numpy only, so neither needs jax installed:
 
 Each returns a port model of ``model_class`` (``GDRecommender`` by
 default; a JAX checkpoint does not record its class, so the caller names
-it, e.g. ``WRMFRecommender``) that computes what the JAX model computes:
+it, e.g. ``WRMFRecommender`` or ``KMFRecommender``) that computes what the JAX model computes:
 P, Q, the biases and ``overall_bias``, the label indexes (so that
 ``add_user`` appends the same new id), and where given
 ``components_mean`` and FN's X and Y (a checkpoint carries X as

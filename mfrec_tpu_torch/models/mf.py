@@ -8,14 +8,17 @@ hand-written K3 kernel (``ops.topn_kernel``), whatever the retrieval
 options; ``fast=True`` selects its bf16 + packed mode.  A model on
 ``device='cpu'`` runs the plain ``ops.topk.topn_scores``, or the
 kernel's plain twin when it asks for the kernel (``use_pallas`` or
-``fast``).
+``fast``).  A predictor with no retrieval score mode (an SVD++ model's
+``predict_rating_implicit``, KMF's ``predict_linear_neg``) scores every
+unrated item on the host through the predictor itself, as the JAX
+package does (``mfrec_tpu/models/mf.py:226-262``).
 '''
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.models.base import BaseRecommender
+from mfrec_tpu_torch.models.base import BaseRecommender, Error
 from mfrec_tpu_torch.ops import topk as topk_ops
 from mfrec_tpu_torch.ops import topn_kernel
 from mfrec_tpu_torch.utils import math_
@@ -139,16 +142,11 @@ class MFRecommender(BaseRecommender):
             return self.overall_bias if self.overall_bias else 0.0
 
     def _predictor_mode(self, predictor):
-        '''The retrieval score mode of ``predictor``.  Every predictor of
-        the ported models has one; the JAX package's per-item host loop for
-        predictors without one is not ported.'''
+        '''The retrieval score mode of ``predictor``, or None for a
+        predictor without one (it then scores on the host).'''
         if predictor == 'predict':
             return getattr(self, '_default_predictor_mode', 'dot_plus_one')
-        try:
-            return self._PREDICTOR_MODES[predictor]
-        except KeyError:
-            raise ValueError('predictor %r has no retrieval score mode'
-                             % predictor) from None
+        return self._PREDICTOR_MODES.get(predictor)
 
     def _pallas_score_terms(self, mode):
         '''Map a predictor mode onto the retrieval kernel's fixed score
@@ -223,6 +221,9 @@ class MFRecommender(BaseRecommender):
         if user_index is None:
             user_index = self.users.index[user_label]
         mode = self._predictor_mode(predictor)
+        if mode is None:
+            return self._find_recommended_items_host(
+                user_index, nbr_recommendations, output_label, predictor)
         rated_idx, rated_mask = topk_ops.pad_rated_lists(self.ratings,
                                                          [user_index])
         on_card = self.device.type == 'cuda'
@@ -276,6 +277,43 @@ class MFRecommender(BaseRecommender):
         return [int(x) if not output_label else self.items.labels[int(x)]
                 for x in ids[keep]], [float(v) for v in vals[keep]]
 
+    def _score_unrated_host(self, user_index, predictor):
+        '''The all-items score vector of ``predictor`` for one user,
+        vectorized over items, or None to score item by item through the
+        predictor.  None here; a model whose predictor has a vectorized
+        form overrides it.  Rated items' slots may hold anything: the
+        caller zeroes them.'''
+        return None
+
+    def _find_recommended_items_host(self, user_index, nbr_recommendations,
+                                     output_label, predictor):
+        '''Top-N through the predictor on the host
+        (``mfrec_tpu/models/mf.py:236-262``): every unrated item scored,
+        rated items at 0, NaN at 0; items whose score is exactly 0 left
+        out; a stable sort on the negated scores.'''
+        rated = self.ratings.rated_mask_for_user(user_index)
+        scores = self._score_unrated_host(user_index, predictor)
+        if scores is None:
+            scores = np.zeros(self.nbr_items)
+            fn = getattr(self, predictor)
+            for i in range(self.nbr_items):
+                if rated[i]:
+                    continue
+                try:
+                    scores[i] = fn(i, user_index)
+                except Error:
+                    scores[i] = 0.0
+        else:
+            scores = np.asarray(scores, np.float64).copy()
+            scores[np.asarray(rated[:self.nbr_items], bool)] = 0.0
+        scores = np.nan_to_num(scores)
+        nz = np.nonzero(scores)[0]
+        order = nz[np.argsort(-scores[nz], kind='stable')]
+        order = order[:nbr_recommendations]
+        out = [self.items.labels[int(i)] if output_label else int(i)
+               for i in order]
+        return out, [float(scores[i]) for i in order]
+
     def recommend_batch(self, user_indices, nbr_recommendations=5,
                         predictor='predict', use_pallas=False,
                         sharded=None, mask_rated=True, rated_pad_to=None,
@@ -299,7 +337,24 @@ class MFRecommender(BaseRecommender):
         ``device_item_terms(predictor, bf16=fast)``, to skip the per-call
         upload of the item matrix.
 
+        A predictor with no score mode scores on the host, user by user
+        (``find_recommended_items``; rated items always masked), its rows
+        padded with id 0 and score ``topk.NEG`` past the user's list.
+
         ``sharded=True`` (multi-device retrieval) is not ported yet.'''
+        n = min(int(nbr_recommendations), self.nbr_items)
+        mode = self._predictor_mode(predictor)
+        if mode is None:
+            users = np.asarray(user_indices)
+            idx = np.zeros((len(users), n), np.int32)
+            sc = np.full((len(users), n), topk_ops.NEG, np.float32)
+            for row, uu in enumerate(users):
+                ids, vals = self.find_recommended_items(
+                    user_index=int(uu), nbr_recommendations=n,
+                    predictor=predictor)
+                idx[row, :len(ids)] = ids[:n]
+                sc[row, :len(vals)] = vals[:n]
+            return idx, sc
         if sharded:
             raise NotImplementedError(
                 'sharded retrieval is not ported yet (ROADMAP queue 1, '
@@ -309,14 +364,12 @@ class MFRecommender(BaseRecommender):
             score_dtype = 'bfloat16'
             packed_merge = True
         users = np.asarray(user_indices)
-        n = min(int(nbr_recommendations), self.nbr_items)
         if mask_rated:
             rated_idx, rated_mask = topk_ops.pad_rated_lists(
                 self.ratings, users, pad_to=rated_pad_to)
         else:
             rated_idx = np.zeros((len(users), 1), np.int32)
             rated_mask = np.zeros((len(users), 1), np.float32)
-        mode = self._predictor_mode(predictor)
         if use_pallas or self.device.type == 'cuda':
             bu_eff, bi_eff, mu_eff, post = self._pallas_score_terms(mode)
             Q, bi = device_q if device_q is not None else (self.Q, bi_eff)

@@ -1,4 +1,4 @@
-'''K3, K1, K2, K4, P1, P2 and S1 on a CUDA device: each kernel against its
+'''K3, K1, K2, K4, P1, P2, S1 and S2 on a CUDA device: each kernel against its
 plain version, and a CUDA model against the same model on the CPU.  Every case
 is marked ``gpu`` and skips without a card.  This file imports no JAX,
 so on a GPU host without it run it alone, without the suite's conftest:
@@ -24,7 +24,13 @@ epoch: K1's tolerances.  S1 against its plain version: bit for bit
 row on the card against the CPU plain path: bit for bit; the fused,
 funk-fused and FN fused tiers: two runs on the card bit-identical (their
 scatter-adds run in a fixed order), against the CPU within 1e-5 (1e-4
-for FN): f32 sums in another order.'''
+for FN): f32 sums in another order.  S2 against its plain version on
+the card: bit for bit, both links (the card's expf equals torch.exp
+there); a CUDA KMF model against a CPU one: the alternating tier's RMSE
+history within 1e-2 relative and its factors within K1's tolerance (K1
+reads the window in bf16, the CPU model's XLA-branch math in f32), the
+fold-in's new row and rmse within 1e-6 (the CPU's exp may differ from
+the card's by an ulp).'''
 import numpy as np
 import pytest
 import torch
@@ -1281,3 +1287,193 @@ def test_cuda_fn_fused_matches_cpu(cuda):
         np.testing.assert_array_equal(a, b)
     for a, c in zip(outs[0], outs[2]):
         np.testing.assert_allclose(a, c, atol=1e-4)
+
+
+# ------------------------------------------------------------------- S2
+S2_KS = [1, 8, 40, 64, 66, 256]
+S2_MASKS = [(True, True), (True, False), (False, True)]
+
+
+def _s2_case(dev, U, I, n, k, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return dict(P=t(rng.normal(0, 0.1, (U, k)).astype(np.float32)),
+                Q=t(rng.normal(0, 0.1, (I, k)).astype(np.float32)),
+                bu=t(rng.normal(0, 0.1, U).astype(np.float32)),
+                bi=t(rng.normal(0, 0.1, I).astype(np.float32)),
+                uidx=t(rng.integers(0, U, n).astype(np.int32)),
+                iidx=t(rng.integers(0, I, n).astype(np.int32)),
+                r=t(rng.integers(1, 6, n).astype(np.float32)))
+
+
+def _s2_run(fn, d, kernel, masks, lr=0.01, **kw):
+    '''``fn`` (an S2 entry or its plain version) on copies of ``d``'s
+    state, at KMF's default rates.'''
+    st = [d[x].clone() for x in ('P', 'Q', 'bu', 'bi')]
+    return fn(*st, d['uidx'], d['iidx'], d['r'], lr, 0.1, 0.1, 0.007,
+              kernel, 1.0, 5.0, *masks, **kw)
+
+
+def _s2_same(got, want):
+    for a, w in zip(got[:4], want[:4]):
+        assert torch.equal(a, w)
+    if isinstance(got[4], list):
+        assert got[4] == want[4]
+    else:
+        assert torch.equal(got[4], want[4])
+
+
+@pytest.mark.parametrize('masks', S2_MASKS)
+@pytest.mark.parametrize('kernel', ['logistic', 'linear'])
+@pytest.mark.parametrize('k', S2_KS)
+def test_kmf_serial_kernel_matches_plain(cuda, k, kernel, masks):
+    '''S2, one epoch a launch, against its plain version on the card:
+    P, Q, biases and the rmse bit for bit; a second launch the same.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 30, 20, 200, k, seed=k)
+    before = sk.kmf_serial_converge.launches
+    got = _s2_run(sk.kmf_serial_epoch, d, kernel, masks)
+    again = _s2_run(sk.kmf_serial_epoch, d, kernel, masks)
+    torch.cuda.synchronize()
+    assert sk.kmf_serial_converge.launches == before + 2
+    _s2_same(got, _s2_run(sk.kmf_serial_epoch_ref, d, kernel, masks))
+    _s2_same(got, again)
+
+
+@pytest.mark.parametrize('n', [1, 2, 3, 31, 33])
+def test_kmf_serial_kernel_short_and_repeated_streams(cuda, n):
+    '''n = 1, 2, 3 (the ids' look-ahead wraps), one (u, i) repeated, and
+    a fold-in stream of one user with a duplicated pair.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 12, 40, n, 66, seed=n)
+    streams = [dict(d)]
+    streams.append(dict(d, uidx=torch.full_like(d['uidx'], 3),
+                        iidx=torch.full_like(d['iidx'], 5)))
+    fold = torch.randperm(40, device=cuda)[:n].int()
+    fold[-1] = fold[0]
+    streams.append(dict(d, uidx=torch.full_like(d['uidx'], 7), iidx=fold))
+    for s in streams:
+        for kernel in ('logistic', 'linear'):
+            for masks in S2_MASKS:
+                kw = dict(min_epochs=3, max_epochs=3)
+                _s2_same(_s2_run(sk.kmf_serial_converge, s, kernel, masks,
+                                 **kw),
+                         _s2_run(sk.kmf_serial_converge_ref, s, kernel,
+                                 masks, **kw))
+
+
+@pytest.mark.parametrize('rule', [(12, 12, 0.0), (1, 60, 0.01),
+                                  (0, 0, 0.0)])
+@pytest.mark.parametrize('kernel', ['logistic', 'linear'])
+def test_kmf_serial_converge_matches_plain(cuda, kernel, rule):
+    '''The converge entry: one launch for a call's epochs, every epoch's
+    rmse and the count those of the plain loop under the same rule (no
+    launch when the rule runs none).'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 25, 18, 150, 8, seed=7)
+    kw = dict(min_epochs=rule[0], max_epochs=rule[1],
+              min_improvement=rule[2])
+    before = (sk.kmf_serial_converge.launches, sk.kmf_serial_converge.epochs)
+    got = _s2_run(sk.kmf_serial_converge, d, kernel, (True, True), **kw)
+    torch.cuda.synchronize()
+    n_ep = len(got[4])
+    assert (sk.kmf_serial_converge.launches,
+            sk.kmf_serial_converge.epochs) == (before[0] + (n_ep > 0),
+                                               before[1] + n_ep)
+    _s2_same(got, _s2_run(sk.kmf_serial_converge_ref, d, kernel,
+                          (True, True), **kw))
+    if rule[1] == 60:
+        assert 1 <= n_ep < 60
+
+
+def test_kmf_serial_converge_stops_on_divergence(cuda):
+    '''A stream that blows up: the launch stops after the first
+    non-finite rmse, as the plain loop does.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 25, 18, 150, 8, seed=8)
+    kw = dict(min_epochs=30, max_epochs=30)
+    got = _s2_run(sk.kmf_serial_converge, d, 'linear', (True, True), lr=0.3,
+                  **kw)
+    want = _s2_run(sk.kmf_serial_converge_ref, d, 'linear', (True, True),
+                   lr=0.3, **kw)
+    assert 1 < len(got[4]) == len(want[4]) < 30
+    assert not np.isfinite(got[4][-1])
+    assert [x for x in got[4] if np.isfinite(x)] == \
+        [x for x in want[4] if np.isfinite(x)]
+
+
+@pytest.mark.parametrize('kernel', ['logistic', 'linear'])
+def test_kmf_serial_chain_probe(cuda, kernel):
+    '''S2's chain probe (the bound's one-rating chain, measured apart from
+    S2) launches at every width S2 takes and gives a positive time, and
+    refuses a width S2 does not take.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    for k in (1, 40, 66, 256):
+        ns = sk.chain_latency_ns(k, kernel, cuda, n=1 << 12, iters=2)
+        assert np.isfinite(ns) and ns > 0
+    with pytest.raises(ValueError):
+        sk.chain_latency_ns(257, kernel, cuda)
+
+
+def test_cuda_kmf_matches_cpu(cuda):
+    '''A CUDA KMFRecommender against a CPU one from the same seed:
+    ``train()`` on the alternating tier (K1's logistic build, f32 fixed
+    side, against the CPU's XLA-branch math: the RMSE history within 1e-2
+    relative, the factors within K1's bf16 tolerance); then, from the
+    CUDA model's trained state, ``recommend_batch`` through K3 against
+    the CPU's plain top-n (K3's exact tolerance) and ``add_user`` through
+    S2 (one launch, 200 epochs) against the CPU's plain path (the new row
+    and every epoch's rmse within 1e-6, the same top-5).'''
+    from mfrec_tpu_torch.data.movielens import synthetic_ratings
+    from mfrec_tpu_torch.models.kmf import KMFRecommender
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    u, i, v = synthetic_ratings(300, 200, 6000, rank=6, seed=1)
+    models, hist = {}, {}
+    for dev in ('cuda', 'cpu'):
+        m = KMFRecommender(300, 200, {'nbr_features': 8, 'nbr_epochs': 3,
+                                      'batch_size': 2048, 'inner_steps': 8},
+                           device=dev)
+        m.seed(0)
+        m.set_ratings(u, i, v)
+        before = hk.half_pass.launches
+        m.train()
+        assert hk.half_pass.launches - before == (6 if dev == 'cuda' else 0)
+        models[dev], hist[dev] = m, list(m.rmse_history)
+    c, p = models['cuda'], models['cpu']
+    np.testing.assert_allclose(hist['cuda'], hist['cpu'], rtol=1e-2)
+    for name in ('P', 'Q'):
+        torch.testing.assert_close(torch.from_numpy(getattr(c, name)),
+                                   torch.from_numpy(getattr(p, name)),
+                                   **K1_TOL)
+    for name in ('P', 'Q', 'users_bias', 'items_bias'):
+        setattr(p, name, getattr(c, name).copy())
+    users = np.arange(16)
+    before = topn_scores_kernel.launches
+    k_idx, k_s = c.recommend_batch(users, 10)
+    assert topn_scores_kernel.launches == before + 1
+    t_idx, t_s = p.recommend_batch(users, 11)
+    ok, err, _ = topn_agreement(k_idx, k_s, t_idx, t_s, 10, EXACT['atol'],
+                                tie=EXACT['tie'])
+    assert ok, err
+    rows = {}
+    for m in (c, p):
+        m.seed(5)
+        m.nbr_epochs = 200                       # the shipped fold-in depth
+        before = sk.kmf_serial_converge.launches
+        new = m.add_user('new', np.arange(9, dtype=np.int32),
+                         np.full(9, 5.0, np.float32))
+        assert sk.kmf_serial_converge.launches - before == \
+            (1 if m is c else 0)
+        rows[m.device.type] = (m.P[new].copy(), list(m.rmse_history),
+                               m.find_recommended_items(
+                                   new, nbr_recommendations=5)[0])
+    assert len(rows['cuda'][1]) == len(rows['cpu'][1]) == 200
+    np.testing.assert_allclose(rows['cuda'][0], rows['cpu'][0], atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(rows['cuda'][1], rows['cpu'][1], atol=1e-6,
+                               rtol=0)
+    assert rows['cuda'][2] == rows['cpu'][2]

@@ -189,7 +189,62 @@ def test_port_surface_and_refusals():
         p.set_parameters({'no_such': 1})
     with pytest.raises(NotImplementedError):        # not ported yet
         GDRecommender(5, 4, {'engine': 'dsgd'}, device='cpu').train()
-    with pytest.raises(ValueError):
-        p.recommend_batch([0], 2, predictor='predict_rating_implicit')
+    # a predictor with no retrieval score mode scores on the host, as the
+    # JAX model does: the same ids and scores, NEG past a short list
+    a, b = _svdpp_pair()
+    users = np.arange(a.nbr_users)
+    for x, y in zip(b.recommend_batch(users, 6,
+                                      predictor='predict_rating_implicit'),
+                    a.recommend_batch(users, 6,
+                                      predictor='predict_rating_implicit')):
+        np.testing.assert_array_equal(x, np.asarray(y))
     with pytest.raises(ValueError):
         GDRecommender(5, 4, device='meta')
+
+
+def _svdpp_pair(U=9, I=14, k=4, seed=3):
+    '''A JAX and a port SVD++ GDRecommender holding the same random
+    state: factors, implicit factors Y, biases and the rated-feedback
+    tables; user 0 rated all but 3 items.'''
+    rng = np.random.default_rng(seed)
+    pairs = {(0, j) for j in range(I - 3)}
+    while len(pairs) < 60:
+        pairs.add((int(rng.integers(U)), int(rng.integers(I))))
+    u, i = np.array(sorted(pairs), np.int32).T
+    v = rng.integers(1, 6, u.shape[0]).astype(np.float32)
+    state = dict(P=rng.normal(0, 0.3, (U, k)).astype(np.float32),
+                 Q=rng.normal(0, 0.3, (I, k)).astype(np.float32),
+                 Y=rng.normal(0, 0.3, (I, k)).astype(np.float32),
+                 users_bias=rng.normal(0, 0.2, U).astype(np.float32),
+                 items_bias=rng.normal(0, 0.2, I).astype(np.float32))
+    out = []
+    for m in (JaxGD(U, I, {'nbr_features': k}),
+              GDRecommender(U, I, {'nbr_features': k}, device='cpu')):
+        m.set_ratings(u, i, v)
+        m.compute_overall_avg()
+        for name, val in state.items():
+            setattr(m, name, val.copy())
+        m.initialize_rated_feedback()
+        out.append(m)
+    return out
+
+
+def test_host_scoring_path_matches_jax():
+    '''``find_recommended_items`` with a predictor that has no score mode
+    (SVD++'s ``predict_rating_implicit``, and a predictor the model
+    defines on the fly) against the JAX model: ids and scores equal, in
+    both label and index form; user 0 has only 3 unrated items.'''
+    a, b = _svdpp_pair()
+    for m in (a, b):
+        m.predict_custom = lambda item, user, m=m: \
+            float(m.Q[item] @ m.P[user]) * (item % 3)
+    for pred in ('predict_rating_implicit', 'predict_custom'):
+        for user in range(a.nbr_users):
+            for n, labels in ((5, False), (20, True)):
+                got = b.find_recommended_items(user, nbr_recommendations=n,
+                                               predictor=pred,
+                                               output_label=labels)
+                assert got == a.find_recommended_items(
+                    user, nbr_recommendations=n, predictor=pred,
+                    output_label=labels)
+                assert len(got[0]) <= (3 if user == 0 else n)
