@@ -15,6 +15,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --ab als A B B A  # the ALS CG path, the same way
     python3 chip_smoke.py --ab k3 A B B A   # K3, bench and serving shapes
     python3 chip_smoke.py --ab s1 A B B A   # S1, its feature and fold-ins
+    python3 chip_smoke.py --ab s2 A B B A   # S2, its epoch and fold-ins
 
 Phase 1  the toolchain: torch/CUDA/nvcc versions, the card, and the
          build of every kernel from ``mfrec_tpu_torch/csrc`` (one nvcc
@@ -127,11 +128,12 @@ Phase k  KMF's main path on the card: (a) ``KMFRecommender.train()``
          timed, the new row against a CPU model's plain path; (c)
          ``engine='serial'`` on the ML-100K u1 train split at 40
          features, cut to 3 epochs, S2's epoch timed (one a launch and 3
-         in one launch) beside its bound (bytes, or the stream's longest
-         dependency chain times one rating's chain as a probe apart from
-         S2 measures it), its first epoch against the plain version on
-         the CPU over the whole stream and, on the first 2,000 ratings,
-         on the card, bit for bit; (d) ``engine='fused'`` twice from one
+         in one launch; rounds an epoch, ns a round and a rating) beside
+         its bound (bytes, or the stream's longest dependency chain times
+         one rating's chain as a probe apart from S2 measures it), its
+         first epoch against the plain version on the CPU over the whole
+         stream and, on the first 2,000 ratings, on the card, bit for
+         bit; (d) ``engine='fused'`` twice from one
          seed, bit for bit; (e) ``tests/test_kmf.py``'s end-to-end
          workflow on the card against the CPU (the host scoring path for
          ``predict_linear_neg``, ``add_item``).  K1's, K3's and S2's
@@ -140,8 +142,10 @@ Phase k  KMF's main path on the card: (a) ``KMFRecommender.train()``
          recorded) against its plain version on the first batch of each
          and the hot item's chain.  Phase 2 holds S2 to its plain version
          bit for bit (both links x the fold-in masks x k in 1, 8, 40, 64,
-         66, 256; n = 1, 2, 3; one pair repeated; a fold-in stream; the
-         converge entry's rmse list and count; a diverging stream).
+         66, 256; n = 1, 2, 3; one pair repeated; a fold-in stream;
+         streams around its 32-rating chunks, n = 31 to 1,000; a hot
+         item; rows far past shared memory; the converge entry's rmse
+         list and count; a diverging stream).
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
@@ -152,7 +156,10 @@ K4's per-call sum (CUDA events and device time beside ``index_add_``),
 S1 (the ML-100K feature epoch by events and device time, one converged
 feature through ``engine='funk'``, ``add_user`` at 16 features and at
 rank 64 on a random ML-10M-shape model: ms, S1 launches and rmse reads a
-call) or the ALS CG path (a warm epoch, each half-sweep, the largest user and
+call), S2 (the ML-100K epoch of phase k (c) by events and device time,
+its 3-epoch launch, the rank-64 fold-in stream alone, ``add_user`` at
+rank 64 on a random ML-10M-shape KMF model: ms, S2 launches and rmse
+reads a call) or the ALS CG path (a warm epoch, each half-sweep, the largest user and
 hottest item buckets, by CUDA events; the public ``train()`` at 0, 3
 and 22 epochs on the host clock) in each checkout named, each in a
 process of its own with its own modules and kernel builds, and prints
@@ -4110,6 +4117,7 @@ def serial_entry(s1, p9):
 S2_KS = (1, 8, 40, 64, 66, 256)
 S2_MASKS = ((True, True), (True, False), (False, True))
 S2_RULES = ((12, 12, 0.0), (1, 60, 0.01))      # min_improvement None, float
+S2_CHUNK_EDGES = (31, 32, 33, 64, 65)          # around S2's 32-rating chunks
 # KMF's phase: the JAX KMF bench's rank (bench.py:655-693) at the shipped
 # defaults otherwise; ML-100K at the shipped 40 features
 KMF_PARAMS = {'nbr_features': 64}
@@ -4192,9 +4200,11 @@ def phase2_kmf_serial(device='cuda'):
     '''S2 (``csrc/kmf_serial.cu``) against its plain version on the card,
     bit for bit: every link x fold-in mask x k in S2_KS over a 200-rating
     stream (one epoch a launch); n = 1, 2, 3, a stream repeating one (u,
-    i), a fold-in stream of one user with a duplicated pair; the converge
-    entry's rmse list and epoch count under min_improvement None and a
-    float; a stream that diverges to a non-finite rmse.'''
+    i), a fold-in stream of one user with a duplicated pair, streams
+    around the 32-rating chunks (n = 31, 32, 33, 64, 65, 1,000), a hot
+    item, rows far past shared memory; the converge entry's rmse list
+    and epoch count under min_improvement None and a float; a stream
+    that diverges to a non-finite rmse.'''
     import torch
     from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
     card = card_line()
@@ -4235,6 +4245,9 @@ def phase2_kmf_serial(device='cuda'):
         s2_inputs(12, 40, 20, 64, 6, device),
         uidx=torch.full((20,), 7, dtype=torch.int32, device=device),
         iidx=fold)))
+    for n in S2_CHUNK_EDGES:                # S2 runs chunks of 32 ratings
+        streams.append(('n=%d' % n, s2_inputs(40, 60, n, 40, 100 + n,
+                                              device)))
     for name, s in streams:
         res = []
         for kernel in ('logistic', 'linear'):
@@ -4246,6 +4259,32 @@ def phase2_kmf_serial(device='cuda'):
                                          kernel, masks, **kw)))
         log('  %s, 3 epochs in one launch, 2 links x 3 masks: '
             'bit-identical %d/6' % (name, sum(x for x, _ in res)))
+    d = s2_inputs(40, 60, 1000, 40, 1100, device)
+    kw = dict(min_epochs=2, max_epochs=2)
+    same, _ = check('n=1000', s2_call(sk.kmf_serial_converge, d, 'logistic',
+                                      (True, True), **kw),
+                    s2_call(sk.kmf_serial_converge_ref, d, 'logistic',
+                            (True, True), **kw))
+    log('  n=1000, 2 epochs in one launch, logistic: bit-identical=%s'
+        % same)
+    hot = s2_inputs(30, 25, 300, 40, 11, device)
+    rng = np.random.default_rng(11)
+    hot['iidx'] = torch.from_numpy(np.where(
+        rng.random(300) < 0.5, 0, rng.integers(1, 25, 300)).astype(
+            np.int32)).to(device)
+    big = s2_inputs(3000, 2000, 1500, 64, 12, device)
+    for name, d, fn, ref, kernel, kw in (
+            ('a hot item (half the stream), 2 epochs', hot,
+             sk.kmf_serial_converge, sk.kmf_serial_converge_ref, 'logistic',
+             dict(min_epochs=2, max_epochs=2)),
+            ('3,000 users x 2,000 items at k=64 (rows far past shared '
+             'memory), one epoch', big, sk.kmf_serial_epoch,
+             sk.kmf_serial_epoch_ref, 'linear', {})):
+        res = [check(name, s2_call(fn, d, kernel, masks, **kw),
+                     s2_call(ref, d, kernel, masks, **kw))
+               for masks in S2_MASKS]
+        log('  %s, %s x 3 masks: bit-identical %d/3'
+            % (name, kernel, sum(x for x, _ in res)))
     d = s2_inputs(25, 18, 150, 8, 7, device)
     for rule in S2_RULES:
         for kernel in ('logistic', 'linear'):
@@ -4523,7 +4562,7 @@ def phasek(device='cuda', U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz']):
                          'plain path')
     hot = int(np.bincount(ii, minlength=I).argmax())
     k1 = k1_kmf_cases(k1_calls.calls, hot, device)
-    s2 = kmf_serial_timing(ms, (tu, ti, tv), device)
+    s2 = kmf_serial_timing(device)
     fused = kmf_fused_twice((tu, ti, tv), U1, I1, device)
     e2e = kmf_workflow(device)
     log('  phase k in %.1f s  [%s]' % (time.perf_counter() - t_phase, card))
@@ -4534,26 +4573,21 @@ def phasek(device='cuda', U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz']):
                 s2=s2, fused=fused, e2e=e2e, k1=k1)
 
 
-def kmf_serial_timing(ms, data, device):
-    '''(c), the measurement: S2 on the stream ``engine='serial'`` walks
-    (the u1 train split shuffled by the model's first draw from seed 0)
-    at 40 features from the model's init draw: one epoch a launch and
-    KMF_SERIAL_EPOCHS in one launch (CUDA events; device time), ns a
-    rating, beside the bound; the first epoch's state against the plain
-    version on the CPU over the whole stream (within KMF_FOLD_TOL: the
-    card's expf and the CPU's exp may differ by an ulp) and on the card
-    over the first KMF_REDUCED ratings (bit for bit), both timed.'''
+def kmf_ml100k(device):
+    '''The stream ``engine='serial'`` walks at the ML-100K shape (the u1
+    train split shuffled by a serial ``KMFRecommender``'s first draw from
+    seed 0) and the state it starts from (the model's init draw at 40
+    features, zero biases): (base, (u, i, r)).'''
     import torch
-    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    from mfrec_tpu_torch.data import ml100k_like
     from mfrec_tpu_torch.models.kmf import KMFRecommender
-    card = card_line()
-    U, I = ms.nbr_users, ms.nbr_items
+    (tu, ti, tv), _ = ml100k_like.u1_split(seed=0)
+    U, I = ml100k_like.N_USERS, ml100k_like.N_ITEMS
     m = KMFRecommender(U, I, {'engine': 'serial'}, device='cpu')
     m.seed(0)
-    m.set_ratings(*data)
+    m.set_ratings(tu, ti, tv)
     m.init_feature_normal(0.0, 0.1)
     u, i, r = m.ratings.shuffled(int(m.rng.integers(2 ** 31)))
-    k = m.dimensionality
 
     def t(a, dtype=None):
         return torch.from_numpy(np.array(a, dtype)).to(device)
@@ -4561,15 +4595,35 @@ def kmf_serial_timing(ms, data, device):
     base = dict(P=t(m.P), Q=t(m.Q), bu=t(np.zeros(U, np.float32)),
                 bi=t(np.zeros(I, np.float32)), uidx=t(u, np.int32),
                 iidx=t(i, np.int32), r=t(r, np.float32))
+    return base, (u, i, r)
+
+
+def kmf_serial_timing(device):
+    '''(c), the measurement: S2 on the stream ``engine='serial'`` walks
+    (``kmf_ml100k``) by its plan: one epoch a launch and
+    KMF_SERIAL_EPOCHS in one launch (CUDA events; device time), ns a
+    rating and a round, beside the bound; the first epoch's state against
+    the plain version on the CPU over the whole stream (within
+    KMF_FOLD_TOL: the card's expf and the CPU's exp may differ by an ulp)
+    and on the card over the first KMF_REDUCED ratings (bit for bit),
+    both timed.'''
+    import torch
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    card = card_line()
+    base, (u, i, r) = kmf_ml100k(device)
+    U, I = base['P'].shape[0], base['Q'].shape[0]
+    k = int(base['P'].shape[1])
     n = len(r)
+    plan = sk.kmf_plan(base['uidx'], base['iidx'], base['r'], device)
     kw = dict(min_epochs=KMF_SERIAL_EPOCHS, max_epochs=KMF_SERIAL_EPOCHS)
 
     def one():
-        return s2_call(sk.kmf_serial_epoch, base, 'logistic', (True, True))
+        return s2_call(sk.kmf_serial_epoch, base, 'logistic', (True, True),
+                       plan=plan)
 
     def many():
         return s2_call(sk.kmf_serial_converge, base, 'logistic',
-                       (True, True), **kw)
+                       (True, True), plan=plan, **kw)
 
     epoch_ms = timed_ms(one, 5)
     dev_ms, dev_n = kernel_device_ms(one, 'kmf_serial', 3)
@@ -4585,7 +4639,9 @@ def kmf_serial_timing(ms, data, device):
     full_same, full_err = s2_compare(full, want_full)
     red = dict(base, uidx=base['uidx'][:KMF_REDUCED],
                iidx=base['iidx'][:KMF_REDUCED], r=base['r'][:KMF_REDUCED])
-    got = s2_call(sk.kmf_serial_epoch, red, 'logistic', (True, True))
+    red_plan = sk.kmf_plan(red['uidx'], red['iidx'], red['r'], device)
+    got = s2_call(sk.kmf_serial_epoch, red, 'logistic', (True, True),
+                  plan=red_plan)
     sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -4594,17 +4650,21 @@ def kmf_serial_timing(ms, data, device):
     plain_ms = (time.perf_counter() - t0) * 1e3
     same, err = s2_compare(got, want)
     red_ms = timed_ms(lambda: s2_call(sk.kmf_serial_epoch, red, 'logistic',
-                                      (True, True)), 5)
+                                      (True, True), plan=red_plan), 5)
     ru, ri = u[:KMF_REDUCED], i[:KMF_REDUCED]
     red_bound, red_by, red_depth = s2_bound_ms(ru, ri, k, chain)
+    ns_round = (dev_ms if dev_ms is not None else epoch_ms) * 1e6 \
+        / plan.rounds
     log('  (c) S2 at the ML-100K shape (%d ratings shuffled, %d x %d, k=%d, '
         'logistic): one epoch a launch %.4f ms (events), %s device (%d '
-        'launches recorded), %.1f ns a rating; %d epochs in one launch '
-        '%.4f ms, %.4f an epoch; bound %.4f ms (%s: longest dependency '
-        'chain %d ratings x one rating\'s chain %.1f ns, the probe)  [%s]'
+        'launches recorded), %.1f ns a rating; %d rounds an epoch (chunks '
+        'of %d), %.1f ns a round (device); %d epochs in one launch %.4f '
+        'ms, %.4f an epoch; bound %.4f ms (%s: longest dependency chain %d '
+        'ratings x one rating\'s chain %.1f ns, the probe)  [%s]'
         % (n, U, I, k, epoch_ms, ms_or_not(dev_ms), dev_n,
-           epoch_ms * 1e6 / n, KMF_SERIAL_EPOCHS, conv_ms,
-           conv_ms / KMF_SERIAL_EPOCHS, bound, bound_by, depth, chain, card))
+           epoch_ms * 1e6 / n, plan.rounds, sk.CHUNK, ns_round,
+           KMF_SERIAL_EPOCHS, conv_ms, conv_ms / KMF_SERIAL_EPOCHS, bound,
+           bound_by, depth, chain, card))
     log('  (c) the whole stream\'s first epoch against the plain version on '
         'the CPU (%.0f ms there): bit-identical=%s, max abs err %.3g '
         '(tolerance %g)' % (cpu_ms, full_same, full_err, KMF_FOLD_TOL))
@@ -4621,7 +4681,8 @@ def kmf_serial_timing(ms, data, device):
         raise SystemExit('S2 differs from its plain version on the ML-100K '
                          'stream')
     return dict(epoch_ms=epoch_ms, device_ms=dev_ms, converged_ms=conv_ms,
-                ns_a_rating=epoch_ms * 1e6 / n, bound_ms=bound,
+                ns_a_rating=epoch_ms * 1e6 / n, rounds=plan.rounds,
+                ns_a_round=ns_round, bound_ms=bound,
                 bound_by=bound_by, longest_chain=depth, chain_ns=chain,
                 n=n, k=k, reduced_ms=red_ms, reduced_plain_ms=plain_ms,
                 reduced_bound_ms=red_bound, reduced_bound_by=red_by,
@@ -4716,7 +4777,9 @@ def kmf_entry(s2, pk):
     t = pk['s2']
     return [{
         'name': 'kmf_serial (S2, a call\'s serial kernel-MF epochs and '
-                'their convergence rule; no TPU counterpart)',
+                'their convergence rule; no TPU counterpart; redesigned: '
+                'each 32-rating chunk run side by side on 16 warps from a '
+                'host plan, rows handed over in shared memory)',
         'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/kmf_serial.cu',
         'replaces': 'mfrec_tpu/ops/kmf.py:34 (kmf_serial_epoch, a '
                     'lax.fori_loop outside any Pallas kernel; the driver '
@@ -4730,7 +4793,8 @@ def kmf_entry(s2, pk):
         'shape': 'one epoch over the first %d ratings of the ML-100K u1 '
                  'train split shuffled, k=40, logistic' % KMF_REDUCED,
         'epoch_ms_ml100k': t['epoch_ms'], 'device_ms_ml100k': t['device_ms'],
-        'ns_a_rating': t['ns_a_rating'], 'bound_ms_ml100k': t['bound_ms'],
+        'ns_a_rating': t['ns_a_rating'], 'rounds_ml100k': t['rounds'],
+        'ns_a_round': t['ns_a_round'], 'bound_ms_ml100k': t['bound_ms'],
         'chain_ns': t['chain_ns'], 'longest_chain': t['longest_chain'],
         'max_abs_err_ml100k_vs_cpu': t['full_cpu_err'],
         'plain_ms_ml100k_cpu': t['full_cpu_plain_ms'],
@@ -5104,7 +5168,100 @@ def ab_s1(reps=3):
     return out
 
 
-AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3', 's1')
+def ab_s2(reps=3):
+    '''S2 in this process's checkout: the ML-100K epoch of phase k (c)
+    (``kmf_ml100k``; one epoch a launch, CUDA events and device time, ns
+    a rating), its 3-epoch launch, the rank-64 fold-in stream alone (one
+    user, 20 items fixed, 200 epochs in one launch; events and device
+    time), and ``add_user`` with 20 ratings on a random ML-10M-shape
+    rank-64 KMF model (the shipped 200 epochs; ms, S2 launches and rmse
+    reads a call).  A stream's plan, where the checkout has one, is built
+    once and not timed.  Medians of ``reps`` (the add_user calls) or of
+    the timed runs.'''
+    import torch
+    from mfrec_tpu_torch import interop
+    from mfrec_tpu_torch.models.kmf import KMFRecommender
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    dev = 'cuda'
+    out = {}
+
+    def planned(d):
+        if not hasattr(sk, 'kmf_plan'):
+            return {}
+        plan = sk.kmf_plan(d['uidx'], d['iidx'], d['r'], dev)
+        out.setdefault('rounds', plan.rounds)
+        return {'plan': plan}
+
+    base, (u, i, r) = kmf_ml100k(dev)
+    kw = planned(base)
+
+    def epoch():
+        return s2_call(sk.kmf_serial_epoch, base, 'logistic', (True, True),
+                       **kw)
+
+    def three():
+        return s2_call(sk.kmf_serial_converge, base, 'logistic',
+                       (True, True), min_epochs=3, max_epochs=3, **kw)
+
+    out['epoch_ms'] = timed_ms(epoch, 10)
+    out['epoch_device_ms'], out['epoch_device_n'] = kernel_device_ms(
+        epoch, 'kmf_serial', 10)
+    out['epoch_ns_a_rating'] = out['epoch_ms'] * 1e6 / len(r)
+    out['three_epochs_ms'] = timed_ms(three, 5)
+    rng = np.random.default_rng(4)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    fd = dict(P=t(rng.normal(0, 0.1, (1, 64)).astype(np.float32)),
+              Q=t(rng.normal(0, 0.1, (20, 64)).astype(np.float32)),
+              bu=t(np.zeros(1, np.float32)),
+              bi=t(rng.normal(0, 0.3, 20).astype(np.float32)),
+              uidx=t(np.zeros(20, np.int32)),
+              iidx=t(np.arange(20, dtype=np.int32)),
+              r=t(rng.integers(1, 6, 20).astype(np.float32)))
+    fkw = planned(fd)
+
+    def fold():
+        return s2_call(sk.kmf_serial_converge, fd, 'logistic',
+                       (True, False), min_epochs=200, max_epochs=200, **fkw)
+
+    out['foldin_stream_ms'] = timed_ms(fold, 10)
+    out['foldin_stream_device_ms'], _ = kernel_device_ms(fold, 'kmf_serial',
+                                                          10)
+    Um, Im, k = ML10M['U'], ML10M['I'], 64
+    P = rng.normal(0, 0.1, (Um, k)).astype(np.float32)
+    Q = rng.normal(0, 0.1, (Im, k)).astype(np.float32)
+    bu0 = rng.normal(0, 0.3, Um).astype(np.float32)
+    bi0 = rng.normal(0, 0.3, Im).astype(np.float32)
+    ru = rng.integers(0, Um, 100_000).astype(np.int32)
+    ri = rng.integers(0, Im, 100_000).astype(np.int32)
+    rv = rng.integers(1, 6, 100_000).astype(np.float32)
+    m = interop.from_numpy(P, Q, bu0, bi0, 3.5, (ru, ri, rv), device=dev,
+                           model_class=KMFRecommender,
+                           parameters={'nbr_features': k, 'nbr_epochs': 200})
+    m.seed(7)
+    rec = []
+    for j in range(reps):
+        items = rng.choice(Im, 20, replace=False).astype(np.int32)
+        vals = rng.integers(1, 6, 20).astype(np.float32)
+        before = sk.kmf_serial_converge.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.add_user('ab-%d' % j, items, vals)
+        torch.cuda.synchronize()
+        rec.append(((time.perf_counter() - t0) * 1e3,
+                    sk.kmf_serial_converge.launches - before,
+                    len(m.rmse_history)))
+    out.update(add_user_ms_64=float(np.median([x[0] for x in rec])),
+               add_user_ms_64_all=[x[0] for x in rec],
+               add_user_launches_64=[x[1] for x in rec],
+               add_user_reads_64=[x[1] for x in rec],
+               add_user_epochs_64=rec[0][2])
+    return out
+
+
+AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3', 's1', 's2')
 
 
 def ab_main(mode, checkouts, child):
@@ -5126,6 +5283,9 @@ def ab_main(mode, checkouts, child):
         elif mode == 's1':
             _cuda_build.build(['serial_funk'])
             out = ab_s1()
+        elif mode == 's2':
+            _cuda_build.build(['kmf_serial'])
+            out = ab_s2()
         elif als:
             _cuda_build.build([x for x in ('pcg', 'cg_bucket') if os.path.exists(
                 os.path.join(checkout, 'mfrec_tpu_torch', 'csrc', x + '.cu'))])
@@ -5141,7 +5301,7 @@ def ab_main(mode, checkouts, child):
         out.update(checkout=checkout, card=card_line())
         print('AB %s %s' % (mode, json.dumps(out)), flush=True)
         return 0
-    if mode in ('k3', 's1'):      # seeded inputs made in each process
+    if mode in ('k3', 's1', 's2'):   # seeded inputs made in each process
         return max(subprocess.run(
             [sys.executable, os.path.abspath(__file__), '--ab', mode,
              '--ab-child', d]).returncode for d in checkouts)
@@ -5167,9 +5327,9 @@ def main(argv=None):
     ap.add_argument('--phases', default='123456789k',
                     help='which phases to run (default: all)')
     ap.add_argument('--ab', choices=AB_MODES,
-                    help='instead of the phases, time K1, K3, K4, S1 or the '
-                         'ALS CG path in each checkout given, in the order '
-                         'given')
+                    help='instead of the phases, time K1, K3, K4, S1, S2 or '
+                         'the ALS CG path in each checkout given, in the '
+                         'order given')
     ap.add_argument('--ab-child', action='store_true', help=argparse.SUPPRESS)
     ap.add_argument('checkouts', nargs='*', help='checkouts for --ab')
     args = ap.parse_args(argv)

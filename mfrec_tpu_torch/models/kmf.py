@@ -295,9 +295,10 @@ class KMFRecommender(MFRecommender):
         '''The order-faithful serial epochs (``mfrec_tpu/models/kmf.py:
         314-354``) under the convergence rule, with no schedule refusal
         (the fold-ins run on a model whose training uses lr_decay): on a
-        CUDA model one S2 launch for all of them, then one read of their
-        rmse.  Only the rows the stream rates go to the device and back:
-        no rating touches the others.'''
+        CUDA model one S2 launch for all of them, by the stream's plan
+        (built once a call), then one read of their rmse.  Only the rows
+        the stream rates go to the device and back: no rating touches the
+        others.'''
         if ratings is None:
             uidx, iidx, vals = self.ratings.shuffled(
                 int(self.rng.integers(2**31)))
@@ -319,6 +320,8 @@ class KMFRecommender(MFRecommender):
                         for a, ids in ((self.P, users), (self.Q, items),
                                        (self.users_bias, users),
                                        (self.items_bias, items)))
+        plan = kmf_serial_kernel.kmf_plan(uidx, iidx, vals, self.device) \
+            if self.device.type == 'cuda' else None
         history = kmf_serial_kernel.kmf_serial_converge(
             P, Q, bu, bi, self._put(uidx, np.int32),
             self._put(iidx, np.int32), self._put(vals, np.float32),
@@ -326,7 +329,7 @@ class KMFRecommender(MFRecommender):
             self.K_bias, kernel=link, lo=self.min_rating, hi=self.max_rating,
             update_users=update_users, update_items=update_items,
             min_epochs=rule[0], max_epochs=rule[1],
-            min_improvement=rule[2])[4]
+            min_improvement=rule[2], plan=plan)[4]
         if verbose:
             for e, r in enumerate(history):
                 self.logger.info('EPOCHS: %d RMSE: %s', e + 1, r)

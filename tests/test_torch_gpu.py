@@ -26,7 +26,8 @@ funk-fused and FN fused tiers: two runs on the card bit-identical (their
 scatter-adds run in a fixed order), against the CPU within 1e-5 (1e-4
 for FN): f32 sums in another order.  S2 against its plain version on
 the card: bit for bit, both links (the card's expf equals torch.exp
-there); a CUDA KMF model against a CPU one: the alternating tier's RMSE
+there), on streams around its 32-rating chunks, a hot item and rows far
+past shared memory too; a CUDA KMF model against a CPU one: the alternating tier's RMSE
 history within 1e-2 relative and its factors within K1's tolerance (K1
 reads the window in bf16, the CPU model's XLA-branch math in f32), the
 fold-in's new row and rmse within 1e-6 (the CPU's exp may differ from
@@ -1363,6 +1364,79 @@ def test_kmf_serial_kernel_short_and_repeated_streams(cuda, n):
                                  **kw),
                          _s2_run(sk.kmf_serial_converge_ref, s, kernel,
                                  masks, **kw))
+
+
+def _s2_hot_item(dev, seed=11):
+    '''A stream whose item 0 takes half the ratings (long chains).'''
+    d = _s2_case(dev, 30, 25, 300, 40, seed=seed)
+    rng = np.random.default_rng(seed)
+    hot = np.where(rng.random(300) < 0.5, 0, rng.integers(1, 25, 300))
+    return dict(d, iidx=torch.from_numpy(hot.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize('n', [31, 32, 33, 64, 65, 1000])
+def test_kmf_serial_kernel_chunk_edges(cuda, n):
+    '''Streams that end at, before and after a chunk's edge (S2 runs
+    chunks of 32 ratings in rounds), 3 epochs in one launch, both links,
+    the three masks (n = 1,000: logistic, both sides updated), bit for
+    bit against the plain version.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 40, 60, n, 40, seed=100 + n)
+    cases = ([('logistic', (True, True))] if n == 1000 else
+             [(kernel, masks) for kernel in ('logistic', 'linear')
+              for masks in S2_MASKS])
+    kw = dict(min_epochs=3, max_epochs=3)
+    for kernel, masks in cases:
+        _s2_same(_s2_run(sk.kmf_serial_converge, d, kernel, masks, **kw),
+                 _s2_run(sk.kmf_serial_converge_ref, d, kernel, masks, **kw))
+
+
+@pytest.mark.parametrize('masks', S2_MASKS)
+def test_kmf_serial_kernel_hot_item_and_large_table(cuda, masks):
+    '''A hot item (half the stream, 2 epochs), and a stream whose rows
+    (3,000 users, 2,000 items, k = 64: about 1.3 MB with their biases)
+    are far more than a block's shared memory (1 epoch), bit for bit
+    against the plain version; then the hot stream again on P and Q
+    that lie 4 bytes off a 16-byte boundary (the rows copied 4 bytes at
+    a time).'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    hot = _s2_hot_item(cuda)
+    kw = dict(min_epochs=2, max_epochs=2)
+    _s2_same(_s2_run(sk.kmf_serial_converge, hot, 'logistic', masks, **kw),
+             _s2_run(sk.kmf_serial_converge_ref, hot, 'logistic', masks,
+                     **kw))
+    big = _s2_case(cuda, 3000, 2000, 1500, 64, seed=12)
+    _s2_same(_s2_run(sk.kmf_serial_epoch, big, 'linear', masks),
+             _s2_run(sk.kmf_serial_epoch_ref, big, 'linear', masks))
+    off = dict(hot)
+    for name in ('P', 'Q'):
+        t = hot[name]
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        off[name] = buf[1:].view(t.shape)
+        off[name].copy_(t)
+        assert off[name].data_ptr() % 16 != 0
+    _s2_same(_s2_run(sk.kmf_serial_converge, off, 'logistic', masks, **kw),
+             _s2_run(sk.kmf_serial_converge_ref, hot, 'logistic', masks,
+                     **kw))
+
+
+def test_kmf_serial_plan_is_checked(cuda):
+    '''A plan is the stream's: one built for another length or on the
+    CPU is refused; a plan passed in is used as built.'''
+    from mfrec_tpu_torch.ops import kmf_serial_kernel as sk
+    d = _s2_case(cuda, 12, 40, 50, 8, seed=13)
+    plan = sk.kmf_plan(d['uidx'], d['iidx'], d['r'], cuda)
+    assert plan.rounds > 0 and plan.rec.is_cuda
+    _s2_same(_s2_run(sk.kmf_serial_epoch, d, 'logistic', (True, True),
+                     plan=plan),
+             _s2_run(sk.kmf_serial_epoch_ref, d, 'logistic', (True, True)))
+    with pytest.raises(ValueError):
+        _s2_run(sk.kmf_serial_epoch, d, 'logistic', (True, True),
+                plan=sk.kmf_plan(d['uidx'][:40], d['iidx'][:40],
+                                 d['r'][:40], cuda))
+    with pytest.raises(ValueError):
+        _s2_run(sk.kmf_serial_epoch, d, 'logistic', (True, True),
+                plan=sk.kmf_plan(d['uidx'], d['iidx'], d['r'], 'cpu'))
 
 
 @pytest.mark.parametrize('rule', [(12, 12, 0.0), (1, 60, 0.01),
