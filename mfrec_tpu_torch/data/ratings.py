@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from mfrec_tpu_torch.utils import profiling
+
 
 def create_bool_sparse_row(ratings):
     """Row-based (count-with-leading-0, col-index) boolean layout for the
@@ -205,28 +207,29 @@ class Ratings:
     def _consolidate(self):
         if not self._dirty:
             return
-        u = np.concatenate([self._u] + [b[0] for b in self._bulk]
-                           + [np.asarray(self._users, np.int32)])
-        i = np.concatenate([self._i] + [b[1] for b in self._bulk]
-                           + [np.asarray(self._items, np.int32)])
-        v = np.concatenate([self._v] + [b[2] for b in self._bulk]
-                           + [np.asarray(self._values, np.float32)])
-        self._bulk = []
-        # Sort user-major (u, then i): two stable sort passes.
-        perm_i = np.argsort(i, kind='stable')
-        u2, i2, v2 = u[perm_i], i[perm_i], v[perm_i]
-        perm_u = np.argsort(u2, kind='stable')
-        u, i, v = u2[perm_u], i2[perm_u], v2[perm_u]
-        # Deduplicate: last write wins (lil_matrix assignment semantics).
-        keep = np.ones(u.shape[0], bool)
-        keep[:-1] = (u[:-1] != u[1:]) | (i[:-1] != i[1:])
-        # An explicit zero deletes the entry (sparse-store semantics).
-        keep &= v != 0.0
-        self._u, self._i, self._v = u[keep], i[keep], v[keep]
-        self._users, self._items, self._values = [], [], []
-        self._dirty = False
-        self._cache = {}
-        self._version += 1
+        with profiling.span('store.consolidate'):
+            u = np.concatenate([self._u] + [b[0] for b in self._bulk]
+                               + [np.asarray(self._users, np.int32)])
+            i = np.concatenate([self._i] + [b[1] for b in self._bulk]
+                               + [np.asarray(self._items, np.int32)])
+            v = np.concatenate([self._v] + [b[2] for b in self._bulk]
+                               + [np.asarray(self._values, np.float32)])
+            self._bulk = []
+            # Sort user-major (u, then i): two stable sort passes.
+            perm_i = np.argsort(i, kind='stable')
+            u2, i2, v2 = u[perm_i], i[perm_i], v[perm_i]
+            perm_u = np.argsort(u2, kind='stable')
+            u, i, v = u2[perm_u], i2[perm_u], v2[perm_u]
+            # Deduplicate: last write wins (lil_matrix assignment semantics).
+            keep = np.ones(u.shape[0], bool)
+            keep[:-1] = (u[:-1] != u[1:]) | (i[:-1] != i[1:])
+            # An explicit zero deletes the entry (sparse-store semantics).
+            keep &= v != 0.0
+            self._u, self._i, self._v = u[keep], i[keep], v[keep]
+            self._users, self._items, self._values = [], [], []
+            self._dirty = False
+            self._cache = {}
+            self._version += 1
 
     # ------------------------------------------------------------ accessors
     @property

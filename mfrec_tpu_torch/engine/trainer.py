@@ -1,7 +1,9 @@
 '''
 Convergence driver: port of ``ConvergenceDriver`` from
-``mfrec_tpu/engine/trainer.py`` (pure Python, copied unchanged; that
-module imports jax for ``ResilientDriver``, which is not ported yet).
+``mfrec_tpu/engine/trainer.py`` (pure Python, copied; that module
+imports jax for ``ResilientDriver``, which is not ported yet).  The one
+addition is the ``converge.sync`` span (``utils.profiling``) around each
+epoch's wait for its rmse.
 
 The reference's epoch rule (``gd_estimator.pyx:360,455,545``):
 
@@ -13,6 +15,8 @@ keep going while the training RMSE still improves by ``min_improvement``;
 on the host between epochs (one scalar device->host sync per epoch).
 '''
 from __future__ import annotations
+
+from mfrec_tpu_torch.utils import profiling
 
 
 class ConvergenceDriver:
@@ -62,7 +66,8 @@ class ConvergenceDriver:
                 break
             rmse_last = rmse
             state, rmse_dev = epoch_fn(state)
-            rmse = float(rmse_dev)
+            with profiling.span('converge.sync'):
+                rmse = float(rmse_dev)
             if self.nan_guard and not math.isfinite(rmse):
                 raise FloatingPointError(
                     'training diverged: rmse=%r at epoch %d (reduce the '

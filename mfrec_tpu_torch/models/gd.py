@@ -47,6 +47,7 @@ from mfrec_tpu_torch.models.base import DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.ops import serial_kernel, sgd_mf
 from mfrec_tpu_torch.ops import similarity as sim_ops
+from mfrec_tpu_torch.utils import profiling
 
 # engines of the JAX model that the port does not have yet -> ROADMAP item
 _UNPORTED_ENGINES = {
@@ -399,13 +400,19 @@ class GDRecommender(MFRecommender):
         lr, lr_bu, lr_bi = self._alt_lrs()
         mw = min(128, max(self.nbr_users, self.nbr_items))
         decay, plateau = self._lr_schedule()
-        p_layout, q_layout, W_user, W_item = self._alternating_layouts(mw)
-        state = self._state(with_bias=(bias_mode != 'none'))
-        pad = torch.nn.functional.pad
-        # W spare rows past each side's end: a window never runs off it
-        Paug, Qaug = sgd_mf.augment_factors(
-            pad(state.P, (0, 0, 0, W_user)), pad(state.Q, (0, 0, 0, W_item)),
-            pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
+        with profiling.span('gd.layouts'):
+            p_layout, q_layout, W_user, W_item = \
+                self._alternating_layouts(mw)
+        with profiling.span('gd.upload'):
+            state = self._state(with_bias=(bias_mode != 'none'))
+            profiling.count('h2d_bytes', sum(
+                t.nbytes for t in (state.P, state.Q, state.bu, state.bi)))
+            pad = torch.nn.functional.pad
+            # W spare rows past each side's end: a window never runs off it
+            Paug, Qaug = sgd_mf.augment_factors(
+                pad(state.P, (0, 0, 0, W_user)),
+                pad(state.Q, (0, 0, 0, W_item)),
+                pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
         mu = state.mu
         epoch = sgd_mf.make_alternating_epoch(
             W_user, W_item, lr, self.K, lr_bu=lr_bu, lr_bi=lr_bi,
@@ -428,17 +435,19 @@ class GDRecommender(MFRecommender):
                                      np.float32(s * decay ** e))
             return (Pa, Qa), rmse
 
-        Paug, Qaug = driver.run(one_epoch, (Paug, Qaug))
+        with profiling.span('gd.epochs'):
+            Paug, Qaug = driver.run(one_epoch, (Paug, Qaug))
         if plateau < 1.0 and driver.lr_scale < 1.0:
             self.logger.info('plateau decay engaged: final lr scale %g',
                              driver.lr_scale)
         self.rmse_history = driver.history
-        P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
-        self.P = _host(P, self.nbr_users)
-        self.Q = _host(Q, self.nbr_items)
-        if bias_mode == 'learned':
-            self.users_bias = _host(bu, self.nbr_users)
-            self.items_bias = _host(bi, self.nbr_items)
+        with profiling.span('gd.writeback'):
+            P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
+            self.P = _host(P, self.nbr_users)
+            self.Q = _host(Q, self.nbr_items)
+            if bias_mode == 'learned':
+                self.users_bias = _host(bu, self.nbr_users)
+                self.items_bias = _host(bi, self.nbr_items)
         if verbose:
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)
@@ -514,16 +523,20 @@ class GDRecommender(MFRecommender):
                          verbose=False):
         '''Main SGD training (reference gradient_descent.py:506-542).
         handle_bias=False -> baseline 1.0; handle_bias=True -> fixed
-        BellKor biases computed first, then held.'''
-        self._init_factors(initialize_model)
-        if handle_bias:
-            self.compute_overall_avg()
-            self.compute_items_bias_bk()
-            self.compute_users_bias_bk()
-            mode = 'fixed'
-        else:
-            mode = 'none'
-        self._dispatch_engine(mode, verbose)
+        BellKor biases computed first, then held.  Recorded by
+        ``utils.profiling`` as the span tree ``gd.train``.'''
+        with profiling.span('gd.train'):
+            with profiling.span('gd.init'):
+                self._init_factors(initialize_model)
+            if handle_bias:
+                with profiling.span('gd.bias'):
+                    self.compute_overall_avg()
+                    self.compute_items_bias_bk()
+                    self.compute_users_bias_bk()
+                mode = 'fixed'
+            else:
+                mode = 'none'
+            self._dispatch_engine(mode, verbose)
 
     def _lr_schedule(self):
         '''(lr_decay, lr_plateau_decay), each checked to lie in (0, 1].'''

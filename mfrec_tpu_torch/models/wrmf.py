@@ -27,6 +27,7 @@ import torch
 from mfrec_tpu_torch.models.base import Error
 from mfrec_tpu_torch.models.mf import MFRecommender
 from mfrec_tpu_torch.ops import als as als_ops
+from mfrec_tpu_torch.utils import profiling
 
 
 class WRMFRecommender(MFRecommender):
@@ -111,24 +112,32 @@ class WRMFRecommender(MFRecommender):
 
     def train(self, initialize_model=True, handle_bias=False, verbose=False):
         '''ALS training (reference wrmf.py:83-110): binarized implicit
-        preferences, alternating batched normal-equation solves.'''
-        if initialize_model or self.P is None:
-            # P, then Q: the same seed gives the JAX model's factors
-            if self.init_mode == 'normal':
-                self.P = self.rng.normal(
-                    0.0, self.feature_init,
-                    (self.nbr_users, self.dimensionality)).astype(np.float32)
-                self.Q = self.rng.normal(
-                    0.0, self.feature_init,
-                    (self.nbr_items, self.dimensionality)).astype(np.float32)
-            else:        # 'constant': reference-faithful (see __init__)
-                self.P = np.full((self.nbr_users, self.dimensionality),
-                                 self.feature_init, np.float32)
-                self.Q = np.full((self.nbr_items, self.dimensionality),
-                                 self.feature_init, np.float32)
+        preferences, alternating batched normal-equation solves.  Recorded
+        by ``utils.profiling`` as the span tree ``wrmf.train``.'''
+        with profiling.span('wrmf.train'):
+            self._train(initialize_model, verbose)
 
-        self.initialize_rated_feedback()
-        self.compute_overall_avg()
+    def _train(self, initialize_model, verbose):
+        with profiling.span('wrmf.init'):
+            if initialize_model or self.P is None:
+                # P, then Q: the same seed gives the JAX model's factors
+                k = self.dimensionality
+                if self.init_mode == 'normal':
+                    self.P = self.rng.normal(
+                        0.0, self.feature_init,
+                        (self.nbr_users, k)).astype(np.float32)
+                    self.Q = self.rng.normal(
+                        0.0, self.feature_init,
+                        (self.nbr_items, k)).astype(np.float32)
+                else:        # 'constant': reference-faithful (see __init__)
+                    self.P = np.full((self.nbr_users, k), self.feature_init,
+                                     np.float32)
+                    self.Q = np.full((self.nbr_items, k), self.feature_init,
+                                     np.float32)
+
+        with profiling.span('wrmf.feedback'):
+            self.initialize_rated_feedback()
+            self.compute_overall_avg()
 
         engine = 'als' if self.engine == 'auto' else self.engine
         if engine == 'als_sharded':
@@ -138,16 +147,16 @@ class WRMFRecommender(MFRecommender):
         if engine != 'als':
             raise Error('unknown engine %r' % (self.engine,))
 
-        user_buckets = self.ratings.padded_rows(axis='user')
-        item_buckets = self.ratings.padded_rows(axis='item')
-        dev = self.device
+        with profiling.span('wrmf.buckets'):
+            user_buckets = self.ratings.padded_rows(axis='user')
+            item_buckets = self.ratings.padded_rows(axis='item')
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-                dev)
+        def host(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
+        # als_wrmf_train uploads P, Q and the buckets to the model's device
         P, Q = als_ops.als_wrmf_train(
-            put(self.P), put(self.Q), user_buckets, item_buckets,
+            host(self.P), host(self.Q), user_buckets, item_buckets,
             nbr_epochs=int(self.nbr_epochs),
             c_pos=float(self.c_pos), alpha=float(self.alpha),
             reg=float(self.K),
@@ -159,10 +168,12 @@ class WRMFRecommender(MFRecommender):
             cg_warmup_epochs=int(self.cg_warmup_epochs),
             pcg_impl=self.pcg_impl,
             callback=(lambda e, P, Q: self.logger.info('Epoch : %d', e))
-            if verbose else None)
-        self.P = np.array(P.cpu().numpy())
-        self.Q = np.array(Q.cpu().numpy())
-        # Rows with no ratings solve to M^-1 @ 0 = 0 in the reference
-        # (als_implicit.pyx:296-302); padded buckets skip them, so zero here.
-        self.P[self.ratings.user_counts() == 0] = 0.0
-        self.Q[self.ratings.item_counts() == 0] = 0.0
+            if verbose else None, device=self.device)
+        with profiling.span('wrmf.writeback'):
+            self.P = np.array(P.cpu().numpy())
+            self.Q = np.array(Q.cpu().numpy())
+            # Rows with no ratings solve to M^-1 @ 0 = 0 in the reference
+            # (als_implicit.pyx:296-302); padded buckets skip them, so zero
+            # here.
+            self.P[self.ratings.user_counts() == 0] = 0.0
+            self.Q[self.ratings.item_counts() == 0] = 0.0

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from mfrec_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
@@ -71,11 +73,17 @@ def build(names):
 
 
 def _build_locked(names):
+    todo = [name for name in names if not library_path(name).exists()]
+    if not todo:
+        return
+    with profiling.span('kernel.build:' + ','.join(todo)):
+        _compile(todo)
+
+
+def _compile(names):
     jobs = []
     for name in names:
         so = library_path(name)
-        if so.exists():
-            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(so.name + '.tmp%d' % os.getpid())
         cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),

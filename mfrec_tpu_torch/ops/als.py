@@ -35,6 +35,7 @@ import torch
 
 from mfrec_tpu_torch.ops.cg_kernel import cg_bucket_kernel, padded_k, \
     pcg_solve_ref
+from mfrec_tpu_torch.utils import profiling
 
 
 @contextlib.contextmanager
@@ -272,17 +273,28 @@ def _alive_mask(buckets, nrows):
     return alive
 
 
+def _host_nbytes(arrays):
+    '''The bytes of the host-resident arrays among ``arrays`` (numpy
+    arrays and CPU tensors).'''
+    return sum(a.nbytes for a in arrays
+               if not torch.is_tensor(a) or a.device.type == 'cpu')
+
+
 def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
                    c_pos=1.0, alpha=0.0, reg=0.015, callback=None,
                    gram_dtype=None, solver='exact', cg_steps=6,
                    cg_warm_steps=None, cg_warmup_epochs=2,
-                   pcg_impl='auto'):
+                   pcg_impl='auto', device=None):
     '''Full WRMF training: alternate user and item half-sweeps
-    (reference main loop ``als_implicit.pyx:250-352``) on P's device.
+    (reference main loop ``als_implicit.pyx:250-352``) on ``device``
+    (default: P's).
 
     P: [U, k] user factors, Q: [I, k] item factors (f32 tensors, not
     modified).  user_buckets index into Q (each user's rated items);
-    item_buckets index into P.  Returns new (P, Q).
+    item_buckets index into P.  Returns new (P, Q).  P, Q, the alive
+    masks and the buckets go to the device in the span ``als.upload``,
+    whose host-resident bytes count as ``h2d_bytes``; the epochs run in
+    ``als.epochs`` (``utils.profiling``).
 
     Zero-rating rows are zeroed after each half-sweep: the reference
     solves M^-1 @ 0 = 0 for them during the pass, so they must not carry
@@ -301,28 +313,37 @@ def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
     retrieval; on a CPU model 'pallas' runs K2's plain version and 'xla'
     the plain loop.
     '''
-    dev = P.device
+    dev = P.device if device is None else torch.device(device)
     if pcg_impl in (None, 'auto'):
         pcg_impl = 'pallas' if dev.type == 'cuda' else 'xla'
-    u_alive = torch.from_numpy(_alive_mask(user_buckets, P.shape[0])).to(dev)
-    i_alive = torch.from_numpy(_alive_mask(item_buckets, Q.shape[0])).to(dev)
-    user_buckets = device_buckets(user_buckets, dev)
-    item_buckets = device_buckets(item_buckets, dev)
+    with profiling.span('als.upload'):
+        u_alive = _alive_mask(user_buckets, P.shape[0])
+        i_alive = _alive_mask(item_buckets, Q.shape[0])
+        host = [P, Q, u_alive, i_alive]
+        host += [x for b in (*user_buckets, *item_buckets) for x in b]
+        profiling.count('h2d_bytes', _host_nbytes(host))
+        P, Q = P.to(dev), Q.to(dev)
+        u_alive = torch.from_numpy(u_alive).to(dev)
+        i_alive = torch.from_numpy(i_alive).to(dev)
+        user_buckets = device_buckets(user_buckets, dev)
+        item_buckets = device_buckets(item_buckets, dev)
     if cg_warm_steps is None:
         cg_warm_steps = cg_steps
-    for epoch in range(nbr_epochs):
-        if solver == 'cg':
-            steps = cg_steps if epoch < cg_warmup_epochs else cg_warm_steps
-            P, Q = cg_epoch(P, Q, u_alive, i_alive, user_buckets,
-                            item_buckets, float(c_pos), float(alpha),
-                            float(reg), int(steps), pcg_impl)
-        else:
-            P = als_half_sweep(Q, P, user_buckets, c_pos, alpha, reg,
-                               gram_dtype) * u_alive
-            Q = als_half_sweep(P, Q, item_buckets, c_pos, alpha, reg,
-                               gram_dtype) * i_alive
-        if callback is not None:
-            callback(epoch, P, Q)
+    with profiling.span('als.epochs'):
+        for epoch in range(nbr_epochs):
+            if solver == 'cg':
+                steps = cg_steps if epoch < cg_warmup_epochs \
+                    else cg_warm_steps
+                P, Q = cg_epoch(P, Q, u_alive, i_alive, user_buckets,
+                                item_buckets, float(c_pos), float(alpha),
+                                float(reg), int(steps), pcg_impl)
+            else:
+                P = als_half_sweep(Q, P, user_buckets, c_pos, alpha, reg,
+                                   gram_dtype) * u_alive
+                Q = als_half_sweep(P, Q, item_buckets, c_pos, alpha, reg,
+                                   gram_dtype) * i_alive
+            if callback is not None:
+                callback(epoch, P, Q)
     return P, Q
 
 

@@ -36,7 +36,7 @@ MODULES = ['mfrec_tpu_torch', 'mfrec_tpu_torch.data.ratings',
            'mfrec_tpu_torch.tools.kernel_probe',
            'mfrec_tpu_torch.ops.reference_numpy',
            'mfrec_tpu_torch.ops.serial_kernel',
-           'mfrec_tpu_torch.eval.sweep']
+           'mfrec_tpu_torch.eval.sweep', 'mfrec_tpu_torch.utils.profiling']
 FORBIDDEN = ('jax', 'jaxlib', 'mfrec_tpu', 'bench', 'tools')
 
 
