@@ -194,6 +194,24 @@ class BaseRecommender(object):
         idx = np.stack([u, i], axis=1).astype(np.int32)
         return idx, v.astype(np.float64)
 
+    def _store_cached(self, name, build, *key):
+        '''``build()``, kept on the model as ``name`` and keyed on the
+        ratings store's identity token, snapshot ``version`` and nnz (+
+        ``key``): a call on an unchanged store gets it back.  The token
+        keeps a store swapped in by ``load_state``, whose version restarts
+        at 0, from reusing another store's entry; the old entry is let go
+        before a new one is built, so the device never holds two.  Returns
+        ``(value, reused)``.'''
+        store = self.ratings
+        key = (store.token, store.version, store.nnz) + key
+        cached = getattr(self, name, None)
+        if cached is not None and cached[0] == key:
+            return cached[1], True
+        setattr(self, name, None)
+        value = build()
+        setattr(self, name, (key, value))
+        return value, False
+
     def initialize_rated_feedback(self):
         '''Build the (rated [N,2], per-user (seek, span)) arrays consumed by
         the SVD++ path (reference base.py:228-263).'''

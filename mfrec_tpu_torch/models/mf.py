@@ -45,28 +45,21 @@ class MFRecommender(BaseRecommender):
     def _alternating_layouts(self, max_window):
         '''The sorted-pass layouts of the alternating engine on the
         model's device (``ops.sgd_mf.PassLayout``; with K1's segment
-        tables on a CUDA model), cached on the ratings store's identity
-        token and snapshot ``version`` (+ batch/window).  The token keeps
-        a store swapped in by ``load_state``, whose version restarts at
-        0, from reusing another store's layouts.'''
+        tables on a CUDA model), kept on an unchanged ratings store
+        (``_store_cached``, + batch/window).'''
         from mfrec_tpu_torch.ops import sgd_mf
-        store = self.ratings
-        key = (store.token, store.version, store.nnz, self.batch_size,
-               max_window)
-        cached = getattr(self, '_alt_layout_cache', None)
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        self._alt_layout_cache = None    # free the old tables first
-        uidx, iidx, vals = store.coo()
-        on_card = self.device.type == 'cuda'
-        pl_, ql_ = (sgd_mf.PassLayout(
-            sgd_mf.sorted_pass_layout(uidx, iidx, vals, self.batch_size,
-                                      axis=axis, max_window=max_window),
-            axis, self.device, segments=on_card)
-            for axis in ('user', 'item'))
-        out = (pl_, ql_, pl_.W, ql_.W)
-        self._alt_layout_cache = (key, out)
-        return out
+
+        def build():
+            uidx, iidx, vals = self.ratings.coo()
+            on_card = self.device.type == 'cuda'
+            pl_, ql_ = (sgd_mf.PassLayout(
+                sgd_mf.sorted_pass_layout(uidx, iidx, vals, self.batch_size,
+                                          axis=axis, max_window=max_window),
+                axis, self.device, segments=on_card)
+                for axis in ('user', 'item'))
+            return (pl_, ql_, pl_.W, ql_.W)
+        return self._store_cached('_alt_layout_cache', build,
+                                  self.batch_size, max_window)[0]
 
     def clamping(self, value, min=1.0, max=5.0):
         '''Clamp to [min, max] (``mfrec_tpu/models/mf.py:65-68``).'''

@@ -113,9 +113,30 @@ class WRMFRecommender(MFRecommender):
     def train(self, initialize_model=True, handle_bias=False, verbose=False):
         '''ALS training (reference wrmf.py:83-110): binarized implicit
         preferences, alternating batched normal-equation solves.  Recorded
-        by ``utils.profiling`` as the span tree ``wrmf.train``.'''
+        by ``utils.profiling`` as the span tree ``wrmf.train``.
+
+        Both sides' buckets live on the model's device between calls on
+        an unchanged store (``_als_buckets``): a call that finds them
+        counts ``als.layouts_reused`` and uploads only P and Q; a write,
+        a consolidation or ``load_state`` makes the next call build and
+        upload them again.  Never-rated rows come back exactly zero,
+        zeroed on the device by ``ops.als.als_wrmf_train``.'''
         with profiling.span('wrmf.train'):
             self._train(initialize_model, verbose)
+
+    def _als_buckets(self):
+        '''Both sides' ``padded_rows`` on the model's device, kept on an
+        unchanged ratings store (``_store_cached``); a call that finds
+        them counts ``als.layouts_reused``.'''
+        def build():
+            return tuple(als_ops.device_buckets(
+                self.ratings.padded_rows(axis=axis), self.device)
+                for axis in ('user', 'item'))
+        out, reused = self._store_cached('_als_device_cache', build,
+                                         self.device)
+        if reused:
+            profiling.count('als.layouts_reused', 1)
+        return out
 
     def _train(self, initialize_model, verbose):
         with profiling.span('wrmf.init'):
@@ -135,8 +156,8 @@ class WRMFRecommender(MFRecommender):
                     self.Q = np.full((self.nbr_items, k), self.feature_init,
                                      np.float32)
 
+        # WRMF reads no SVD++ feedback arrays (``initialize_rated_feedback``)
         with profiling.span('wrmf.feedback'):
-            self.initialize_rated_feedback()
             self.compute_overall_avg()
 
         engine = 'als' if self.engine == 'auto' else self.engine
@@ -148,13 +169,12 @@ class WRMFRecommender(MFRecommender):
             raise Error('unknown engine %r' % (self.engine,))
 
         with profiling.span('wrmf.buckets'):
-            user_buckets = self.ratings.padded_rows(axis='user')
-            item_buckets = self.ratings.padded_rows(axis='item')
+            user_buckets, item_buckets = self._als_buckets()
 
         def host(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
-        # als_wrmf_train uploads P, Q and the buckets to the model's device
+        # als_wrmf_train uploads P and Q; the buckets are on the device
         P, Q = als_ops.als_wrmf_train(
             host(self.P), host(self.Q), user_buckets, item_buckets,
             nbr_epochs=int(self.nbr_epochs),
@@ -170,10 +190,5 @@ class WRMFRecommender(MFRecommender):
             callback=(lambda e, P, Q: self.logger.info('Epoch : %d', e))
             if verbose else None, device=self.device)
         with profiling.span('wrmf.writeback'):
-            self.P = np.array(P.cpu().numpy())
-            self.Q = np.array(Q.cpu().numpy())
-            # Rows with no ratings solve to M^-1 @ 0 = 0 in the reference
-            # (als_implicit.pyx:296-302); padded buckets skip them, so zero
-            # here.
-            self.P[self.ratings.user_counts() == 0] = 0.0
-            self.Q[self.ratings.item_counts() == 0] = 0.0
+            self.P = P.cpu().numpy()
+            self.Q = Q.cpu().numpy()

@@ -229,9 +229,14 @@ def cg_epoch(P, Q, u_alive, i_alive, user_buckets, item_buckets, c_pos,
 
 def device_buckets(buckets, device):
     '''A ``padded_rows`` bucket list as tensors on ``device``, uploaded
-    once for a whole training run (tensors already there pass
-    through).'''
+    once for a whole training run (tensors already there pass through);
+    the host-resident arrays it hands over count as ``h2d_bytes``.
+    ``WRMFRecommender`` keeps its lists between ``train()`` calls on an
+    unchanged ratings store.'''
     dev = torch.device(device)
+    profiling.count('h2d_bytes', _host_nbytes(
+        x for b in buckets for x in b
+        if not torch.is_tensor(x) or x.device != dev))
     return [tuple(torch.as_tensor(x).to(dev) for x in b) for b in buckets]
 
 
@@ -280,6 +285,15 @@ def _host_nbytes(arrays):
                if not torch.is_tensor(a) or a.device.type == 'cpu')
 
 
+def _device_alive(buckets, nrows, device):
+    '''``_alive_mask`` on ``device`` from device buckets: [nrows, 1] f32,
+    1 on a row that has a bucket and 0 on a never-rated row.'''
+    alive = torch.zeros((nrows, 1), dtype=torch.float32, device=device)
+    if buckets:
+        alive.index_fill_(0, torch.cat([b[0] for b in buckets]).long(), 1.0)
+    return alive
+
+
 def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
                    c_pos=1.0, alpha=0.0, reg=0.015, callback=None,
                    gram_dtype=None, solver='exact', cg_steps=6,
@@ -291,14 +305,18 @@ def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
 
     P: [U, k] user factors, Q: [I, k] item factors (f32 tensors, not
     modified).  user_buckets index into Q (each user's rated items);
-    item_buckets index into P.  Returns new (P, Q).  P, Q, the alive
-    masks and the buckets go to the device in the span ``als.upload``,
-    whose host-resident bytes count as ``h2d_bytes``; the epochs run in
-    ``als.epochs`` (``utils.profiling``).
+    item_buckets index into P; buckets already on the device (as
+    ``WRMFRecommender`` keeps them) pass through.  Returns new (P, Q).
+    P, Q and any host-resident buckets go to the device in the span
+    ``als.upload``, whose host-resident bytes count as ``h2d_bytes``;
+    the alive masks are built there, on the device, from the buckets'
+    rows.  The epochs run in ``als.epochs`` (``utils.profiling``).
 
-    Zero-rating rows are zeroed after each half-sweep: the reference
-    solves M^-1 @ 0 = 0 for them during the pass, so they must not carry
-    their init values into the next Gram.
+    Rows with no ratings come back exactly zero: the reference solves
+    M^-1 @ 0 = 0 for them during the pass (``als_implicit.pyx:296-302``),
+    where the buckets skip them.  Each half-sweep multiplies its side by
+    its alive mask on the device, so they do not carry their init values
+    into the next Gram; with ``nbr_epochs=0`` the call does it once.
 
     ``solver='cg'`` runs warm-started PCG half-sweeps (``cg_epoch``),
     ``cg_steps`` iterations per solve for the first ``cg_warmup_epochs``
@@ -317,19 +335,17 @@ def als_wrmf_train(P, Q, user_buckets, item_buckets, nbr_epochs=20,
     if pcg_impl in (None, 'auto'):
         pcg_impl = 'pallas' if dev.type == 'cuda' else 'xla'
     with profiling.span('als.upload'):
-        u_alive = _alive_mask(user_buckets, P.shape[0])
-        i_alive = _alive_mask(item_buckets, Q.shape[0])
-        host = [P, Q, u_alive, i_alive]
-        host += [x for b in (*user_buckets, *item_buckets) for x in b]
-        profiling.count('h2d_bytes', _host_nbytes(host))
+        profiling.count('h2d_bytes', _host_nbytes([P, Q]))
         P, Q = P.to(dev), Q.to(dev)
-        u_alive = torch.from_numpy(u_alive).to(dev)
-        i_alive = torch.from_numpy(i_alive).to(dev)
         user_buckets = device_buckets(user_buckets, dev)
         item_buckets = device_buckets(item_buckets, dev)
+        u_alive = _device_alive(user_buckets, P.shape[0], dev)
+        i_alive = _device_alive(item_buckets, Q.shape[0], dev)
     if cg_warm_steps is None:
         cg_warm_steps = cg_steps
     with profiling.span('als.epochs'):
+        if nbr_epochs == 0:
+            P, Q = P * u_alive, Q * i_alive
         for epoch in range(nbr_epochs):
             if solver == 'cg':
                 steps = cg_steps if epoch < cg_warmup_epochs \

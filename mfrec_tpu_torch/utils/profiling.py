@@ -20,15 +20,19 @@ Spans of the training path (one tree a ``train()`` call):
   ``converge.sync`` an epoch around the wait for its rmse) and
   ``gd.writeback`` (the factors back as numpy);
 - ``WRMFRecommender.train``: root ``wrmf.train``; children ``wrmf.init``,
-  ``wrmf.feedback`` (``initialize_rated_feedback`` and the overall
-  mean), ``wrmf.buckets`` (both sides' ``padded_rows``), ``als.upload``
-  (P, Q, the alive masks and every bucket to the device), ``als.epochs``
-  and ``wrmf.writeback``;
+  ``wrmf.feedback`` (the overall mean), ``wrmf.buckets`` (both sides'
+  buckets on the device: kept from the last call on an unchanged store,
+  else ``padded_rows`` and their upload), ``als.upload`` (P and Q to the
+  device, the alive masks built there), ``als.epochs`` and
+  ``wrmf.writeback`` (the factors back as numpy);
 - set-up: ``store.consolidate`` (the ratings store's sort of pending
   writes) and ``kernel.build:<names>`` (only when ``nvcc`` compiles).
 
-Counter: ``h2d_bytes``, the bytes of the host arrays ``gd.upload`` and
-``als.upload`` hand to the model's device.
+Counters: ``h2d_bytes``, the bytes of the host arrays that ``gd.upload``,
+``als.upload`` and, on a call that builds them, ``wrmf.buckets`` hand
+to the model's device; ``als.layouts_reused``, one for each WRMF
+``train()`` call that found its device buckets kept from an earlier
+call (none on a call that builds them).
 
 The clock is the one ``torch.profiler``'s host events can be placed on
 (``time.perf_counter_ns``), so a profiled run can lay these spans beside

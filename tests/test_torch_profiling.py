@@ -160,7 +160,7 @@ def test_wrmf_train_span_tree_and_h2d_bytes(recording):
     assert [s.name for s in roots] == ['wrmf.train']
     assert _children(rec.spans, roots[0]) == WRMF_CHILDREN
     assert len(rec.spans) == 1 + len(WRMF_CHILDREN)
-    want = (m.P.nbytes + m.Q.nbytes + 4 * m.nbr_users + 4 * m.nbr_items
+    want = (m.P.nbytes + m.Q.nbytes
             + sum(a.nbytes for axis in ('user', 'item')
                   for b in m.ratings.padded_rows(axis=axis) for a in b))
     assert rec.counters == {'h2d_bytes': want}
