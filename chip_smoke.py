@@ -224,6 +224,12 @@ K4_RTOL = 1e-5
 # bf16 terms in another f32 order; the row then differs by an ulp, which
 # can flip one bf16 rounding of a later segment's term (2^-9 of it)
 STEP_UPD_TOL = 1e-2
+# K4g's error mode against its plain version: K4's tolerance plus 2^-7 of
+# the largest term, under 1 % of the elements beyond K4's tolerance.  The
+# kernel's dot is a warp's fused multiply-adds where the plain version
+# rounds each product, so an error may differ by an f32 ulp and round one
+# term err * q to the neighbouring bf16 value (tests/test_torch_gpu.py)
+AGG_FLIP = 2.0 ** -7
 # phase 6: phase 4's model settings, the SVD++ tier's defaults otherwise
 # (W=512, batch 16384, T=32, lr 0.15); phase 7: bench.py's FN operating
 # point (bench.py:619, 633-646) at the model's defaults (W=512, T=64)
@@ -1762,6 +1768,111 @@ def k4_scan_case(name, seg, k, rows, seed, iters=0, plain_iters=0,
     return rec
 
 
+def k4_gather_bound(seg, k, mode):
+    '''K4g's least time over segment table ``seg``, k the gathered rows'
+    width: the benchmark's byte and operation counts of the SVD++
+    aggregation phases (``bench_torch/lib/svdpp_bound``; the error mode's
+    rows are k = factors + 2 wide) on this script's peaks.'''
+    import torch
+    bench = os.path.join(REPO, 'bench_torch')
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from lib import svdpp_bound
+    work = svdpp_bound.gather_agg_work if mode == 'gather' else \
+        svdpp_bound.error_agg_work
+    return roofline_ms(*work(
+        int(seg.ent_r.numel()), int(seg.blk_row.numel()),
+        int(seg.seg_cnt.numel()), int(torch.unique(seg.ent_fix).numel()),
+        k if mode == 'gather' else k - 2))
+
+
+def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
+                   plain_iters=0):
+    '''K4g -- ``gather_aggregate`` (``mode`` 'gather', SVD++'s Y sums) or
+    ``error_aggregate`` ('error', its error-weighted Q sums) -- over
+    segment table ``seg`` against its plain version, from a random
+    target, random gathered rows ``[fix_rows, k]`` and, in the error
+    mode, random effective rows, the target k - 2 wide and ratings
+    clamped to [1, 5].  The sum mode as ``scan_aggregate`` (``_k4_ok``);
+    the error mode within K4_ATOL/K4_RTOL plus AGG_FLIP of the largest
+    term, under 1 % of the elements beyond K4's tolerance; a second
+    launch bit-identical.  With ``iters`` the kernel's time (CUDA events
+    around a call, host included, and its device time), the plain
+    version's and the bound.'''
+    import torch
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    dev = seg.ent_r.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((fix_rows, k), generator=gen, device=dev)
+    if mode == 'gather':
+        kt = k
+        run, ref, args = wak.gather_aggregate, wak.gather_aggregate_ref, \
+            (src, seg)
+    else:
+        kt = k - 2
+        prow = 0.3 * torch.randn((rows, k), generator=gen, device=dev)
+        run, ref, args = wak.error_aggregate, wak.error_aggregate_ref, \
+            (prow, src, seg, 3.6, 1.0, 5.0)
+    t0 = torch.randn((rows, kt), generator=gen, device=dev)
+    got = run(t0.clone(), *args)
+    again = run(t0.clone(), *args)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    want = ref(t0.clone(), *args)
+    same = bool(torch.equal(got, again))
+    del again
+    if mode == 'gather':
+        exact = wak.scan_aggregate_ref(t0.double(), src[seg.ent_fix.long()],
+                                       seg)
+        ok, err, k64, p64 = _k4_ok(got, want, exact)
+        del exact
+        extra = {'kernel_err_f64': k64, 'plain_err_f64': p64}
+        what = 'float64: kernel %.3g, plain %.3g' % (k64, p64)
+    else:
+        # the largest term err * q, in blocks of entries
+        tmax = 0.0
+        for a in range(0, int(seg.ent_r.numel()), 1 << 22):
+            f = seg.ent_fix[a:a + (1 << 22)].long()
+            q = src[f]
+            d = (prow[seg.ent_row[a:a + (1 << 22)].long()] * q).sum(-1) + 3.6
+            e = (seg.ent_r[a:a + (1 << 22)] - d.clamp(1.0, 5.0)) * \
+                seg.ent_m[a:a + (1 << 22)]
+            tmax = max(tmax, float((e[:, None] * q[:, :kt]).abs().max()))
+            del f, q, d, e
+        diff = (got - want).abs()
+        tol = K4_ATOL + K4_RTOL * want.abs()
+        err = float(diff.max())
+        share = float((diff > tol).float().mean())
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (diff <= tol + AGG_FLIP * tmax).all()) and share < 1e-2
+        del diff, tol
+        extra = {'largest_term': tmax, 'share_over_k4_tol': share}
+        what = 'largest term %.3g, %.2g of the elements past K4\'s ' \
+            'tolerance' % (tmax, share)
+    ok = ok and same and float((want - t0).abs().max()) > 0
+    rec = {'case': name, 'mode': mode, 'k': k, 'entries':
+           int(seg.ent_r.numel()), 'rows': int(seg.blk_row.numel()),
+           'longest_row': seg.longest, 'ok': ok, 'max_abs_err': err,
+           **extra}
+    del got, want
+    if iters:
+        tk = t0.clone()
+        rec['ms'] = timed_ms(lambda: run(tk, *args), iters)
+        rec['plain_ms'] = timed_ms(lambda: ref(tk, *args),
+                                   plain_iters or iters)
+        if dev.type == 'cuda':
+            rec['device_ms'] = device_ms(lambda: run(tk, *args))
+        rec['bound_ms'], rec['bound_by'] = k4_gather_bound(seg, k, mode)
+        del tk
+    log('  %-44s ok=%s max_abs_err=%.3g (%s; %d entries in %d rows, '
+        'longest %d)%s'
+        % (name, ok, err, what, rec['entries'], rec['rows'], seg.longest,
+           ' kernel %.3f ms (device %.3f ms), plain %.3f ms, bound %.3f ms'
+           % (rec['ms'], rec.get('device_ms', -1.0), rec['plain_ms'],
+              rec['bound_ms']) if iters else ''))
+    return rec
+
+
 def step_bound(seg, k, nt, weighted):
     '''The item step's least time: the bytes its inputs need (the
     table's ent_fix and ent_m, the per-entry weights when ``weighted``,
@@ -1852,8 +1963,11 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     call's shape on real ML-10M-layout batches (B=16384, W=128, k=66: a
     user batch and the item batch with the longest run), at the SVD++ and
     FN item-step shapes (W=512, k=64 and the FN's two-in-one k=128), and
-    on edge cases; the phase entry on the whole W=512 user layout (the
-    SVD++/FN aggregation phases, k=64) and item layout (its hot rows).'''
+    on edge cases; the phase entry on the whole W=512 user layout (FN's
+    aggregation phases, k=64) and item layout (its hot rows); K4g, the
+    gathered phases of SVD++ (the Y sums and the error-weighted Q sums),
+    on the whole W=512 user layout at rank 64 and 100 and on a user of
+    about 17,700 ratings.'''
     import torch
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     log('phase 2: K4 against its plain version (counts exact, sums atol %g '
@@ -1920,8 +2034,40 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
     scans.append(k4_scan_case('phase mean=True: reduced user layout', seg,
                               66, REDUCED[0] + 512, seed=5, mean=True))
-    # the SVD++ / FN item step over the W=512 item layout, one launch
     from mfrec_tpu_torch.ops import sgd_mf
+    # K4g, SVD++'s gathered phases, over the W=512 user layout phase 6
+    # drives: k 64 and 66 its rank-64 widths, 100 and 102 the Netflix
+    # cell's
+    L = lay['user', 512]
+    seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
+    gathers = [k4_gather_case('K4g %s: whole user layout (W=512, k=%d)'
+                              % (mode, k), seg, mode, k, U + 512, I + 512,
+                              seed=20 + j, iters=10, plain_iters=2)
+               for j, (mode, k) in enumerate((('gather', 64), ('error', 66),
+                                              ('gather', 100),
+                                              ('error', 102)))]
+    # and on a user of about the Netflix cap's 17,653 ratings over two
+    # batches (K4g's 16-warp blocks, which no ML-10M user reaches), beside
+    # users of one rating
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    Uh, Ih, Nh = 20_000, 17_770, 2_000_000
+    u = rng.integers(0, Uh - 100, Nh).astype(np.int32)
+    u[:17_653] = 3
+    u[17_653:17_693] = np.arange(Uh - 100, Uh - 60)
+    i = rng.integers(0, Ih, Nh).astype(np.int32)
+    v = rng.uniform(1, 5, Nh).astype(np.float32)
+    L = sgd_mf.sorted_pass_layout(u, i, v, 16384, axis='user',
+                                  max_window=512)
+    seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
+    if int(seg.blk_len.max()) < wak.AGG_BLOCK_ROW:
+        raise SystemExit('phase 2 (K4g): no row reaches the block path')
+    gathers += [k4_gather_case('K4g %s: a heavy user, 2 batches (k=%d)'
+                               % (mode, k), seg, mode, k, Uh + 512,
+                               Ih + 512, seed=30 + j)
+                for j, (mode, k) in enumerate((('gather', 100),
+                                               ('error', 102)))]
+    del seg
+    # the SVD++ / FN item step over the W=512 item layout, one launch
     L = lay['item', 512]
     seg = hk.build_segments(L[0], L[2], L[3], L[4], L[5], 512, dev)
     ql = sgd_mf.PassLayout(L, 'item', dev)
@@ -1949,10 +2095,16 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
                 '%.3f ms, bound %.4f ms (%s)  [%s]'
                 % (r['case'], r['ms'], r['plain_ms'], r['loop_ms'],
                    r['bound_ms'], r['bound_by'], card))
-    bad = [r['case'] for r in recs + scans + steps if not r['ok']]
+    for r in gathers[:4]:
+        log('  time %-44s kernel %.4f ms (device %.4f ms), plain %.3f ms, '
+            'bound %.4f ms (%s)  [%s]'
+            % (r['case'], r['ms'], r.get('device_ms', -1.0), r['plain_ms'],
+               r['bound_ms'], r['bound_by'], card))
+    bad = [r['case'] for r in recs + scans + steps + gathers if not r['ok']]
     if bad:
         raise SystemExit('phase 2 (K4) failed: %s' % bad)
-    return {'recs': recs, 'scans': scans, 'steps': steps}
+    return {'recs': recs, 'scans': scans, 'steps': steps,
+            'gathers': gathers}
 
 
 def make_implicit_data(U, I, N, seed=0, clusters=32, heldout_per_user=3):
@@ -2453,14 +2605,22 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
                 per_epoch=per_epoch)
 
 
+def k4g_launches():
+    '''K4g's launches: SVD++'s gathered phases (``gather_aggregate`` and
+    ``error_aggregate``).'''
+    from mfrec_tpu_torch.ops.window_agg_kernel import (error_aggregate,
+                                                       gather_aggregate)
+    return gather_aggregate.launches + error_aggregate.launches
+
+
 def k4_launches():
-    '''K4's launches by all three entry points (the per-call sum, the
-    phase aggregation and the item step).'''
+    '''K4's launches by every entry point (the per-call sum, the phase
+    aggregation, K4g's gathered phases and the item step).'''
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
-    return scan_aggregate.launches + window_aggregate.launches + \
-        step_aggregate.launches
+    return scan_aggregate.launches + k4g_launches() + \
+        window_aggregate.launches + step_aggregate.launches
 
 
 def zero_launch_counts():
@@ -2468,12 +2628,14 @@ def zero_launch_counts():
     from mfrec_tpu_torch.ops.kmf_serial_kernel import kmf_serial_converge
     from mfrec_tpu_torch.ops.serial_kernel import serial_converge
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
-    from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
+    from mfrec_tpu_torch.ops.window_agg_kernel import (error_aggregate,
+                                                       gather_aggregate,
+                                                       scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               window_aggregate, step_aggregate, serial_converge,
-               kmf_serial_converge):
+               gather_aggregate, error_aggregate, window_aggregate,
+               step_aggregate, serial_converge, kmf_serial_converge):
         fn.launches = 0
     serial_converge.epochs = kmf_serial_converge.epochs = 0
 
@@ -2510,7 +2672,7 @@ def epochs_timed(train, history, card, device):
 
 
 K4_KERNELS = ('window_index_kernel', 'window_sum_kernel', 'scan_agg_kernel',
-              'step_agg_kernel')
+              'gather_agg_kernel', 'step_agg_kernel')
 
 
 def tier_split(epoch, state, args, device):
@@ -2520,10 +2682,10 @@ def tier_split(epoch, state, args, device):
     epoch under torch.profiler for the kernels' busy time by kernel (K1
     ``half_pass_rows``/``half_pass_cluster_rows``, K4's
     ``window_index_kernel``/``window_sum_kernel``/``scan_agg_kernel``/
-    ``step_agg_kernel``, the rest) and the device idle share
-    (``idle_share``: busy the union of kernel intervals, as K1's cluster
-    kernel runs on a side stream beside its other blocks, over the epoch's
-    CUDA-event time).'''
+    ``gather_agg_kernel``/``step_agg_kernel``, the rest) and the device
+    idle share (``idle_share``: busy the union of kernel intervals, as
+    K1's cluster kernel runs on a side stream beside its other blocks,
+    over the epoch's CUDA-event time).'''
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device != 'cuda':
@@ -2720,11 +2882,12 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     res.update(k1_launches=half_pass.launches,
                k4_scan_launches=scan_aggregate.launches,
+               k4g_launches=k4g_launches(),
                k4_call_launches=window_aggregate.launches,
                k4_step_launches=step_aggregate.launches,
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
-    check_tier_run('phase 6', res, device, q_batches, card)
+    check_tier_run('phase 6', res, device, q_batches, card, 'svdpp')
     epoch, state, args = m._implicit_epoch()
     res['split'] = tier_split(epoch, state, args, device)
     del epoch, state, args
@@ -2735,22 +2898,23 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     return res
 
 
-def check_tier_run(name, res, device, q_batches, card):
+def check_tier_run(name, res, device, q_batches, card, tier):
     '''The gates of phases 6 and 7: every epoch's train RMSE finite, the
     last below the bias-only floor, and (on the card) K1 and K4 launched
     as the 21 timed epochs need: 2 K1 launches per epoch, and 3 of K4 --
-    2 whole-phase aggregations and one item step, no call per item
-    batch.'''
+    2 whole-phase aggregations (K4g's gathered entries for ``tier``
+    'svdpp', ``scan_aggregate`` for 'fn') and one item step, no call per
+    item batch.'''
     hist = res['hist']
     log('  warm-up 1 epoch %.2f s (rmse %.4f); rmse per epoch (last 5-epoch '
         'run): %s' % (res['warmup_s'], res['warmup_rmse'],
                       ' '.join('%.4f' % x for x in res['rmse'])))
     log('  epoch %.4f s (median of 3), final rmse %.4f vs floor %.4f; K1 '
-        'launches %d, K4 launches %d (%d whole-phase + %d item-step + %d '
-        'per-batch; %d item batches per epoch): %.2f per epoch over 21 '
-        'epochs  [%s]'
+        'launches %d, K4 launches %d (%d whole-phase + %d gathered-phase '
+        '+ %d item-step + %d per-batch; %d item batches per epoch): %.2f '
+        'per epoch over 21 epochs  [%s]'
         % (res['epoch_s'], res['rmse'][-1], res['floor'], res['k1_launches'],
-           res['k4_launches'], res['k4_scan_launches'],
+           res['k4_launches'], res['k4_scan_launches'], res['k4g_launches'],
            res['k4_step_launches'], res['k4_call_launches'], q_batches,
            res['k4_launches'] / 21.0, card))
     if not all(np.isfinite(hist)):
@@ -2758,8 +2922,8 @@ def check_tier_run(name, res, device, q_batches, card):
     if not res['rmse'][-1] < res['floor']:
         raise SystemExit('%s: final RMSE %.4f does not beat the bias-only '
                          'floor %.4f' % (name, res['rmse'][-1], res['floor']))
-    want = (42, 42, 21, 0)
-    got = (res['k1_launches'], res['k4_scan_launches'],
+    want = (42, 0, 42, 21, 0) if tier == 'svdpp' else (42, 42, 0, 21, 0)
+    got = (res['k1_launches'], res['k4_scan_launches'], res['k4g_launches'],
            res['k4_step_launches'], res['k4_call_launches'])
     if device == 'cuda' and got != want:
         raise SystemExit('%s: K1/K4 launches %s, expected %s'
@@ -2795,11 +2959,12 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     res.update(k1_launches=half_pass.launches,
                k4_scan_launches=scan_aggregate.launches,
+               k4g_launches=k4g_launches(),
                k4_call_launches=window_aggregate.launches,
                k4_step_launches=step_aggregate.launches,
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
-    check_tier_run('phase 7', res, device, q_batches, card)
+    check_tier_run('phase 7', res, device, q_batches, card, 'fn')
     epoch, state, args = m._fn_epoch(m._init_or_resume(False))
     res['split'] = tier_split(epoch, state, args, device)
     del epoch, state, args
@@ -3326,14 +3491,16 @@ def k4_entry(k4, svdpp, fn):
     '''K4's entries of the kernels line: the per-call sum and the phase
     aggregation (times at the JAX call's shape, a real user batch, on
     the hottest item batch, at the old item-step call's and on a whole
-    W=512 user layout), and the item step (a whole W=512 item layout);
-    launches over phases 6 and 7's timed epochs.'''
+    W=512 user layout), K4g's gathered phases (a whole W=512 user
+    layout) and the item step (a whole W=512 item layout); launches over
+    phases 6 and 7's timed epochs.'''
     if not k4:
         return []
     call, hotb = k4['recs'][0], k4['recs'][1]
     ystep, xystep = k4['recs'][2], k4['recs'][3]
     scan = k4['scans'][0]
     y, xy = k4['steps'][0], k4['steps'][1]
+    g64, e66, g100, e102 = k4['gathers'][:4]
     runs = [r for r in (svdpp, fn) if r]
 
     def split(r, name):
@@ -3372,6 +3539,34 @@ def k4_entry(k4, svdpp, fn):
             fn['k4_launches'] / 21.0 if fn else None,
         'epoch_s_svdpp': svdpp.get('epoch_s'),
         'epoch_s_fn': fn.get('epoch_s')}, {
+        'name': 'gather_agg (K4g, SVD++ aggregation phases gathering their '
+                'rows)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/window_agg.cu',
+        'replaces': 'mfrec_tpu/ops/sgd_mf.py:971-989 over '
+                    'mfrec_tpu/ops/pallas_window_agg.py:24',
+        'launches': sum(r['k4g_launches'] for r in runs) if runs else None,
+        'max_abs_err': max(r['max_abs_err'] for r in k4['gathers']),
+        'ms': g64['ms'], 'plain_ms': g64['plain_ms'],
+        'bound_ms': g64['bound_ms'], 'bound_by': g64['bound_by'],
+        'library_ms': None,
+        'shape': 'the Y sums (gather_aggregate) over the ML-10M W=512 user '
+                 'layout: %d entries, k=64; ms and plain_ms CUDA events '
+                 'around one call (host included), device_ms the kernel\'s '
+                 'own time (torch.profiler)' % g64['entries'],
+        'device_ms': g64.get('device_ms'),
+        'ms_error': e66['ms'], 'plain_ms_error': e66['plain_ms'],
+        'device_ms_error': e66.get('device_ms'),
+        'bound_ms_error': e66['bound_ms'],
+        'ms_k100': g100['ms'], 'plain_ms_k100': g100['plain_ms'],
+        'device_ms_k100': g100.get('device_ms'),
+        'bound_ms_k100': g100['bound_ms'],
+        'ms_error_k102': e102['ms'], 'plain_ms_error_k102': e102['plain_ms'],
+        'device_ms_error_k102': e102.get('device_ms'),
+        'bound_ms_error_k102': e102['bound_ms'],
+        'largest_term_error': max(e66['largest_term'],
+                                  e102['largest_term']),
+        'phase_ms_svdpp': [split(svdpp, p).get('device_ms') for p in
+                           ('aggregate Y', 'aggregate errors')]}, {
         'name': 'step_aggregate (K4 item step, SVD++ Y / FN X and Y)',
         'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/window_agg.cu',
         'replaces': 'mfrec_tpu/ops/sgd_mf.py:993-1000 and '

@@ -9,7 +9,7 @@
 //
 // by building a [chunk, W] one-hot tile in VMEM and running it through
 // the MXU.  On Hopper that product is wasted work: it is a segmented sum.
-// Three entry points:
+// Four entry points:
 //
 // window_agg_launch -- one call of the JAX signature (any kl, sorted or
 //   not), in two launches.  The first, one block of 32 warps, builds each
@@ -55,6 +55,31 @@
 //   gathered by index inside the kernel (it stays in L2), never
 //   materialized per entry.
 //
+// gather_agg_launch -- the SVD++ user-side phases of a whole epoch in one
+//   call each, with the per-entry rows gathered inside the kernel (by the
+//   table's ent_fix, as step_agg_launch gathers G), never materialized:
+//
+//     sum mode:   target[row] += agg_s( bf16( src[fix_e] ) )
+//     error mode: target[row] += agg_s( bf16( err_e * src[fix_e][:kt] ) ),
+//                 err_e = (r_e - clamp(mu + prow[row] . src[fix_e], lo, hi))
+//                         * m_e
+//
+//   agg_s the f32 sum over segment s, added into the row in batch order
+//   as scan_agg_launch adds it.  The sum mode is phase 1 (A = sum of the
+//   user's Y rows), the error mode phase 4 (G = the error-weighted Q
+//   rows, prow the effective user rows Peff, src the augmented Qaug of
+//   width k = kt + 2).  One template serves both: the error mode reads
+//   the block's prow row once into registers, and each entry's dot is
+//   each lane's fmaf over its columns, then a xor-butterfly over the warp
+//   (every lane ends with the same sum, so no broadcast).  A warp has UU
+//   entries' gathers in flight.  The longest rows (from the wrapper's
+//   AGG_BLOCK_ROW entries: the heavy users) take a whole 16-warp block,
+//   whose warps split each segment into contiguous pieces and combine
+//   their partials in warp order, as the item step's hot rows do; every
+//   other row takes one warp.  At the Netflix shape (100,480,507 entries, k = 100) the rows
+//   these phases used to build first are 40 GB each; here the device
+//   holds none of them.
+//
 // Every row is rounded to bf16 (round to nearest even) inside the
 // kernel, from f32: a caller never rounds first.
 //
@@ -72,6 +97,13 @@
 // step reads the table's ent_fix and ent_m once (67 MB), G once from
 // memory (18 MB; its 2.1 GB of gathers hit L2) and the targets once each
 // way; the hot item's chain (~70,000 entries in one block) bounds it.
+//
+// The gathered phases read the table's ent_fix (and ent_r, ent_m in the
+// error mode) once, the target rows once each way and prow once, and
+// gather 4 k bytes an entry from src, which stays in L2 (Qaug at the
+// Netflix shape is 7.2 MB): 0.4 / 1.2 GB from memory for the sum and the
+// error mode, 0.12 / 0.36 ms; the error mode's 4 k + 7 operations an
+// entry take 0.61 ms at the FP32 peak.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.  Plain C interface, loaded by ctypes.
@@ -447,6 +479,139 @@ step_agg_kernel(const StepArgs a) {
   }
 }
 
+// ---- gather_agg_launch ------------------------------------------------------
+struct GatherArgs {                // gather_agg_launch's arguments
+  float* target;                   // [rows, kt], updated in place
+  const float* src;                // [rows_fix, k], gathered by ent_fix
+  const float* prow;               // [rows, k]: error mode, or null (sum)
+  const int* blk_row;
+  const int* blk_seg0;
+  const int* blk_seg1;
+  const int* seg_ptr;
+  const int* ent_fix;
+  const float* ent_r;
+  const float* ent_m;
+  float mu, lo, hi;
+  int k, kt, n_rows, n_long;
+};
+
+// one row's segments; BLOCK: all NW_STEP warps on the row, splitting each
+// segment, else one warp
+template <int KJ, bool ERR, int UU, bool BLOCK>
+__device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
+                                           int warp, int lane,
+                                           float (*red)[NW_STEP][KJ * 32]) {
+  const int k = a.k;
+  const int kt = a.kt;
+  const size_t row = static_cast<size_t>(a.blk_row[x]);
+  float acc[KJ], p[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int c = lane + 32 * j;
+    acc[j] = c < kt ? a.target[row * kt + c] : 0.f;
+    p[j] = (ERR && c < k) ? a.prow[row * k + c] : 0.f;
+  }
+  int buf = 0;
+  const int s1 = a.blk_seg1[x];
+  for (int s = a.blk_seg0[x]; s < s1; ++s) {
+    const int e0 = a.seg_ptr[s];
+    const int e1 = a.seg_ptr[s + 1];
+    int b0 = e0, b1 = e1;
+    if constexpr (BLOCK) {
+      const int piece = (e1 - e0 + NW_STEP - 1) / NW_STEP;
+      b0 = min(e1, e0 + warp * piece);
+      b1 = min(e1, b0 + piece);
+    }
+    float sum[KJ];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) sum[j] = 0.f;
+    for (int e = b0; e < b1; e += UU) {
+      float v[UU][KJ], r[UU], m[UU];
+#pragma unroll
+      for (int u = 0; u < UU; ++u) {
+        const bool ok = e + u < b1;
+        const int i = ok ? e + u : b0;
+        const size_t g = static_cast<size_t>(a.ent_fix[i]) * k;
+        if constexpr (ERR) {
+          r[u] = a.ent_r[i];
+          m[u] = a.ent_m[i];
+        }
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int c = lane + 32 * j;
+          v[u][j] = (ok && c < k) ? a.src[g + c] : 0.f;
+        }
+      }
+      if constexpr (ERR) {
+        float d[UU];
+#pragma unroll
+        for (int u = 0; u < UU; ++u) {
+          d[u] = 0.f;
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) d[u] = fmaf(p[j], v[u][j], d[u]);
+        }
+        // a butterfly: every lane ends with the same sum
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int u = 0; u < UU; ++u)
+            d[u] += __shfl_xor_sync(0xffffffffu, d[u], o);
+#pragma unroll
+        for (int u = 0; u < UU; ++u) {
+          const float pred = fminf(fmaxf(__fadd_rn(a.mu, d[u]), a.lo), a.hi);
+          const float err = __fmul_rn(__fsub_rn(r[u], pred), m[u]);
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) v[u][j] = __fmul_rn(err, v[u][j]);
+        }
+      }
+      // in entry order, as scan_agg_launch sums the gathered rows
+#pragma unroll
+      for (int u = 0; u < UU; ++u) {
+        if (e + u >= b1) break;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) sum[j] += bf16_round(v[u][j]);
+      }
+    }
+    if constexpr (BLOCK) {
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) red[buf][warp][j * 32 + lane] = sum[j];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        float tot = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW_STEP; ++w) tot += red[buf][w][j * 32 + lane];
+        sum[j] = tot;
+      }
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) acc[j] += sum[j];
+  }
+  if (!BLOCK || warp == 0) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < kt) a.target[row * kt + c] = acc[j];
+    }
+  }
+}
+
+template <int KJ, bool ERR>
+__global__ void __launch_bounds__(NW_STEP * 32)
+gather_agg_kernel(const GatherArgs a) {
+  constexpr int UU = KJ <= 2 ? 2 * U : U;
+  __shared__ float red[2][NW_STEP][KJ * 32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (static_cast<int>(blockIdx.x) < a.n_long) {     // block-uniform
+    gather_row<KJ, ERR, UU, true>(a, blockIdx.x, warp, lane, red);
+  } else {
+    const int x = a.n_long + (blockIdx.x - a.n_long) * NW_STEP + warp;
+    if (x < a.n_rows) gather_row<KJ, ERR, UU, false>(a, x, warp, lane, red);
+  }
+}
+
 struct CallArgs {                  // window_agg_launch's arguments
   const float* g;
   const int* kl;
@@ -512,6 +677,17 @@ cudaError_t launch(const StepArgs& a, cudaStream_t s) {
   } else {
     step_agg_kernel<KJ, 1><<<blocks, NW_STEP * 32, 0, s>>>(a);
   }
+  return cudaGetLastError();
+}
+
+template <int KJ>
+cudaError_t launch(const GatherArgs& a, cudaStream_t s) {
+  const int blocks =
+      a.n_long + (a.n_rows - a.n_long + NW_STEP - 1) / NW_STEP;
+  if (a.prow)
+    gather_agg_kernel<KJ, true><<<blocks, NW_STEP * 32, 0, s>>>(a);
+  else
+    gather_agg_kernel<KJ, false><<<blocks, NW_STEP * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -610,6 +786,43 @@ int step_agg_launch(float* tgt0, float* tgt1, const float* coef0,
   a.n_long = n_long;
   a.row_mean = row_mean;
   a.nt = nt;
+  return dispatch(a, stream);
+}
+
+// The gathered phase over rows x in [0, n_rows) of a segment table: with
+// prow null, target[blk_row[x]] += the segment sums of the bf16 rows
+// src[ent_fix[e]] (kt = k); with prow, of bf16(err_e * src[ent_fix[e]]
+// [:kt]), err_e = (ent_r[e] - clamp(mu + prow[blk_row[x]] .
+// src[ent_fix[e]], lo, hi)) * ent_m[e].  Rows [0, n_long) run one block
+// each.  kt <= k <= 256; indexing in size_t.  Returns a cudaError_t.
+int gather_agg_launch(float* target, const float* src, const float* prow,
+                      const int* blk_row, const int* blk_seg0,
+                      const int* blk_seg1, const int* seg_ptr,
+                      const int* ent_fix, const float* ent_r,
+                      const float* ent_m, float mu, float lo, float hi,
+                      int k, int kt, int n_rows, int n_long, void* stream) {
+  if (k < 1 || k > 32 * MAX_KJ || kt < 1 || kt > k ||
+      (!prow && kt != k) || n_rows < 0 || n_long < 0 || n_long > n_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  GatherArgs a;
+  a.target = target;
+  a.src = src;
+  a.prow = prow;
+  a.blk_row = blk_row;
+  a.blk_seg0 = blk_seg0;
+  a.blk_seg1 = blk_seg1;
+  a.seg_ptr = seg_ptr;
+  a.ent_fix = ent_fix;
+  a.ent_r = ent_r;
+  a.ent_m = ent_m;
+  a.mu = mu;
+  a.lo = lo;
+  a.hi = hi;
+  a.k = k;
+  a.kt = kt;
+  a.n_rows = n_rows;
+  a.n_long = n_long;
   return dispatch(a, stream);
 }
 

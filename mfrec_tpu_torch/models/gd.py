@@ -27,9 +27,11 @@ Engines, on the model's device:
 
 ``feature_training_implicit`` (SVD++) runs
 ``ops.sgd_mf.make_alternating_implicit_epoch``, its aggregation phases
-through K4 (``csrc/window_agg.cu``) on a CUDA model.  The factors stay on
-the device across epochs (one host sync per epoch, the RMSE the
-convergence rule reads) and come back as numpy at the end.
+through K4 (``csrc/window_agg.cu``) on a CUDA model, which gathers each
+rating's row inside the kernel, so the epoch holds nothing of one row a
+rating (the Netflix Prize shape at 100 factors fits one H100).  The
+factors stay on the device across epochs (one host sync per epoch, the
+RMSE the convergence rule reads) and come back as numpy at the end.
 
 ``engine='auto'`` means ``'alternating'``: a port model lives on one
 explicit device, where the JAX model picks ``alternating_sharded`` when
@@ -612,19 +614,24 @@ class GDRecommender(MFRecommender):
         gradient_descent.py:547-574; ``mfrec_tpu/models/gd.py:1025-1058``):
         the joint init, the BellKor biases, the feedback arrays, Y = 0,
         then the sorted-window implicit tier.  Every engine but
-        ``'alternating_sharded'`` runs that tier, as in the JAX model.'''
-        self._init_factors(initialize_model, sequential=False)   # joint
-        self.compute_overall_avg()
-        self.compute_items_bias_bk()
-        self.compute_users_bias_bk()
-        self.initialize_rated_feedback()
-        self.Y = np.zeros_like(self.Q)
-        if self.engine == 'alternating_sharded':
-            raise NotImplementedError(
-                "engine 'alternating_sharded' is not ported yet (ROADMAP %s);"
-                " use engine='alternating'"
-                % _UNPORTED_ENGINES['alternating_sharded'])
-        self._run_alternating_implicit(verbose=verbose)
+        ``'alternating_sharded'`` runs that tier, as in the JAX model.
+        Recorded by ``utils.profiling`` as the span tree ``svdpp.train``.'''
+        with profiling.span('svdpp.train'):
+            with profiling.span('svdpp.init'):
+                self._init_factors(initialize_model, sequential=False)
+            with profiling.span('svdpp.bias'):
+                self.compute_overall_avg()
+                self.compute_items_bias_bk()
+                self.compute_users_bias_bk()
+            with profiling.span('svdpp.feedback'):
+                self.initialize_rated_feedback()
+                self.Y = np.zeros_like(self.Q)
+            if self.engine == 'alternating_sharded':
+                raise NotImplementedError(
+                    "engine 'alternating_sharded' is not ported yet (ROADMAP "
+                    "%s); use engine='alternating'"
+                    % _UNPORTED_ENGINES['alternating_sharded'])
+            self._run_alternating_implicit(verbose=verbose)
 
     def _implicit_epoch(self, use_kernel=None):
         '''The SVD++ epoch (``ops.sgd_mf.make_alternating_implicit_epoch``)
@@ -634,20 +641,30 @@ class GDRecommender(MFRecommender):
         W=512 layouts, ``inner_steps_implicit`` sweeps, the fixed side in
         f32 (bf16 rounding hurts the Y-coupled convergence:
         ``mfrec_tpu/models/gd.py:724-726``).  ``use_kernel`` defaults to
-        whether the model is on a CUDA device.'''
+        whether the model is on a CUDA device.  Spans ``svdpp.layouts``
+        and ``svdpp.upload``, and the counters ``svdpp.layouts_reused``
+        and ``h2d_bytes``.'''
         lr, _, _ = self._alt_lrs()
         # the aggregation phases couple rows across the batch: W=512
-        p_layout, q_layout, W_user, W_item = self._alternating_layouts(512)
-        state = self._state(with_bias=True)
-        pad = torch.nn.functional.pad
-        Paug, Qaug = sgd_mf.augment_factors(
-            pad(state.P, (0, 0, 0, W_user)), pad(state.Q, (0, 0, 0, W_item)),
-            pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
-        Ypad = pad(torch.from_numpy(np.array(self.Y, np.float32)).to(
-            self.device), (0, 0, 0, W_item))
-        nrm_rows = torch.from_numpy(
-            _inv_sqrt_counts(self.ratings.user_counts(),
-                             self.nbr_users + W_user)).to(self.device)
+        with profiling.span('svdpp.layouts'):
+            p_layout, q_layout, W_user, W_item = self._alternating_layouts(
+                512, reused_counter='svdpp.layouts_reused')
+        with profiling.span('svdpp.upload'):
+            state = self._state(with_bias=True)
+            Y = torch.from_numpy(np.array(self.Y, np.float32)).to(
+                self.device)
+            nrm_rows = torch.from_numpy(_inv_sqrt_counts(
+                self.ratings.user_counts(), self.nbr_users + W_user)).to(
+                    self.device)
+            profiling.count('h2d_bytes', sum(
+                t.nbytes for t in (state.P, state.Q, state.bu, state.bi, Y,
+                                   nrm_rows)))
+            pad = torch.nn.functional.pad
+            Paug, Qaug = sgd_mf.augment_factors(
+                pad(state.P, (0, 0, 0, W_user)),
+                pad(state.Q, (0, 0, 0, W_item)),
+                pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
+            Ypad = pad(Y, (0, 0, 0, W_item))
         if use_kernel is None:
             use_kernel = self.device.type == 'cuda'
         epoch = sgd_mf.make_alternating_implicit_epoch(
@@ -660,7 +677,8 @@ class GDRecommender(MFRecommender):
     def _run_alternating_implicit(self, verbose=False):
         '''SVD++ epochs under the convergence driver, with ``lr_decay``
         and ``lr_plateau_decay`` scaling the half-passes and the Y step
-        together; P, Q and Y come back as numpy.'''
+        together; P, Q and Y come back as numpy.  Spans ``svdpp.epochs``
+        and ``svdpp.writeback``.'''
         decay, plateau = self._lr_schedule()
         epoch, state, (mu, p_layout, q_layout, nrm_rows) = \
             self._implicit_epoch()
@@ -681,15 +699,17 @@ class GDRecommender(MFRecommender):
                                          nrm_rows, np.float32(s * decay ** e))
             return (Pa, Qa, Yp), rmse
 
-        Paug, Qaug, Ypad = driver.run(one_epoch, state)
+        with profiling.span('svdpp.epochs'):
+            Paug, Qaug, Ypad = driver.run(one_epoch, state)
         if plateau < 1.0 and driver.lr_scale < 1.0:
             self.logger.info('plateau decay engaged: final lr scale %g',
                              driver.lr_scale)
         self.rmse_history = driver.history
-        P, Q, _, _ = sgd_mf.split_factors(Paug, Qaug)
-        self.P = _host(P, self.nbr_users)
-        self.Q = _host(Q, self.nbr_items)
-        self.Y = _host(Ypad, self.nbr_items)
+        with profiling.span('svdpp.writeback'):
+            P, Q, _, _ = sgd_mf.split_factors(Paug, Qaug)
+            self.P = _host(P, self.nbr_users)
+            self.Q = _host(Q, self.nbr_items)
+            self.Y = _host(Ypad, self.nbr_items)
         if verbose:
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)

@@ -21,7 +21,7 @@ import torch
 from mfrec_tpu_torch.models.base import BaseRecommender, Error
 from mfrec_tpu_torch.ops import topk as topk_ops
 from mfrec_tpu_torch.ops import topn_kernel
-from mfrec_tpu_torch.utils import math_
+from mfrec_tpu_torch.utils import math_, profiling
 
 
 class MFRecommender(BaseRecommender):
@@ -42,11 +42,13 @@ class MFRecommender(BaseRecommender):
         self.neighborhood = 500
 
     # ------------------------------------------------------------- helpers
-    def _alternating_layouts(self, max_window):
+    def _alternating_layouts(self, max_window, reused_counter=None):
         '''The sorted-pass layouts of the alternating engine on the
         model's device (``ops.sgd_mf.PassLayout``; with K1's segment
         tables on a CUDA model), kept on an unchanged ratings store
-        (``_store_cached``, + batch/window).'''
+        (``_store_cached``, + batch/window).  ``reused_counter``: a
+        ``utils.profiling`` counter that counts one when they were
+        kept.'''
         from mfrec_tpu_torch.ops import sgd_mf
 
         def build():
@@ -58,8 +60,11 @@ class MFRecommender(BaseRecommender):
                 axis, self.device, segments=on_card)
                 for axis in ('user', 'item'))
             return (pl_, ql_, pl_.W, ql_.W)
-        return self._store_cached('_alt_layout_cache', build,
-                                  self.batch_size, max_window)[0]
+        layouts, reused = self._store_cached('_alt_layout_cache', build,
+                                             self.batch_size, max_window)
+        if reused and reused_counter:
+            profiling.count(reused_counter, 1)
+        return layouts
 
     def clamping(self, value, min=1.0, max=5.0):
         '''Clamp to [min, max] (``mfrec_tpu/models/mf.py:65-68``).'''

@@ -32,7 +32,9 @@ gradients and counts in place of ``index_add_``.
 
 The aggregation phases and the SVD++ item step go through K4 the same
 way: on a layout with K1's segment table (a CUDA model's) a whole phase
-is one ``scan_aggregate`` launch and the item step one
+is one launch -- SVD++'s two through ``gather_aggregate`` and
+``error_aggregate``, which gather each entry's row inside the kernel,
+FN's through ``scan_aggregate`` -- and the item step one
 ``step_aggregate`` launch; otherwise each batch is one
 ``window_aggregate`` call, as the JAX scan takes it.
 
@@ -50,6 +52,7 @@ import torch
 
 from mfrec_tpu_torch.ops import half_pass_kernel, serial_kernel, \
     window_agg_kernel
+from mfrec_tpu_torch.utils import profiling
 
 
 class MFState(NamedTuple):
@@ -380,18 +383,22 @@ def _agg_window(g, kl, m, W, row_mean):
     return gsum
 
 
-def _scan_window_agg(target, layout, source_fn, W, mean):
+def _scan_window_agg(target, layout, source_fn, W, mean, fused=None):
     '''Add ``source_fn(u, i, r, m)`` rows into ``target`` windows over a
     sorted-pass layout, batch after batch -- the scatter-free profile
     aggregation phase of the implicit (SVD++) and FN tiers.  With K1's
     segment table on the layout, the whole phase is one K4 launch over
-    the layout's masked-in entries (``source_fn`` sees them in the
-    table's order); without it, one K4 call per batch.  Updates
+    the layout's masked-in entries: ``fused(target, segments)`` where
+    given (a K4 entry that makes the same rows itself), else
+    ``scan_aggregate`` of ``source_fn``'s rows (it sees the entries in the
+    table's order); without a table, one K4 call per batch.  Updates
     ``target`` in place and returns it.'''
     if layout.W != W:
         raise ValueError('layout window %d != aggregation window %d'
                          % (layout.W, W))
     seg = layout.segments
+    if seg is not None and fused is not None:
+        return fused(target, seg)
     if seg is not None:
         u, i = (seg.ent_row, seg.ent_fix) if layout.axis == 'user' \
             else (seg.ent_fix, seg.ent_row)
@@ -430,12 +437,16 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
 
     Per epoch, as ``mfrec_tpu/ops/sgd_mf.py:917-950`` sets out:
 
-      1. A[u] = nrm_u * sum_{j in R(u)} y_j (K4 over the user layout).
+      1. A[u] = nrm_u * sum_{j in R(u)} y_j (K4 over the user layout;
+         with a segment table ``gather_aggregate``, which gathers the Y
+         rows itself).
       2. P half-pass on the effective factors Peff = Paug + A; Paug =
          Peff - A afterwards (the f32 round trip of the JAX package).
       3. Q half-pass against the updated Peff.
       4. G[u] = nrm_u * sum_{i in R(u)} err_ui q_i (K4 over the user
-         layout, errors from the updated Peff and Qaug).
+         layout, errors from the updated Peff and Qaug; with a segment
+         table ``error_aggregate``, which computes them in the kernel).
+         With a table no phase holds a tensor of one row an entry.
       5. y_j += lr_y * (mean_{u: j in N(u)} G[u] - K_y y_j), batch after
          batch over the item layout (a window reads what the batch before
          it wrote): one ``step_aggregate`` launch over the layout's
@@ -449,7 +460,11 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
     Fixed-bias mode; the RMSE pools both half-passes.  ``lr_scale``
     scales the half-passes' rates and the Y step together.
     ``on_phase(name)``, if given, is called as each phase ends (a timing
-    hook: 'aggregate Y', 'half-passes', 'aggregate errors', 'Y step').'''
+    hook: 'aggregate Y', 'half-passes', 'aggregate errors', 'Y step').
+    Recorded by ``utils.profiling``: ``svdpp.aggregate`` around each
+    aggregation's launch, ``svdpp.half_passes`` around the two
+    half-passes, ``svdpp.y_step`` around the item step.'''
+    lo_c, hi_c = (lo_r, hi_r) if clamp_pred else (-np.inf, np.inf)
     base = make_alternating_epoch(W_user, W_item, lr, K, bias_mode='fixed',
                                   clamp_pred=clamp_pred, lo_r=lo_r,
                                   hi_r=hi_r, row_mean=row_mean,
@@ -469,13 +484,19 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
                                device=Paug.device)
 
         # 1) user aggregates of Y (sum over rated items, then * nrm)
-        A = _scan_window_agg(zeros(), p_layout, lambda u, i, r, m: Ypad[i],
-                             W_user, mean=False)
+        A = zeros()
+        with profiling.span('svdpp.aggregate'):
+            _scan_window_agg(
+                A, p_layout, lambda u, i, r, m: Ypad[i], W_user, mean=False,
+                fused=lambda t, seg: window_agg_kernel.gather_aggregate(
+                    t, Ypad, seg))
         Apad = torch.nn.functional.pad(A * nrm_rows[:, None], (0, 2))
         mark('aggregate Y')
         # 2+3) the alternating epoch on the effective factors
-        Peff, Qaug, rmse = base(Paug + Apad, Qaug, mu, p_layout, q_layout,
-                                float(s))
+        Peff = Paug + Apad
+        with profiling.span('svdpp.half_passes'):
+            Peff, Qaug, rmse = base(Peff, Qaug, mu, p_layout, q_layout,
+                                    float(s))
         Paug = Peff - Apad
         mark('half-passes')
 
@@ -487,7 +508,12 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
                 pred = clamp(pred, lo_r, hi_r)
             return ((r - pred) * m)[:, None] * ff[:, :k]
 
-        G = _scan_window_agg(zeros(), p_layout, err_q, W_user, mean=False)
+        G = zeros()
+        with profiling.span('svdpp.aggregate'):
+            _scan_window_agg(
+                G, p_layout, err_q, W_user, mean=False,
+                fused=lambda t, seg: window_agg_kernel.error_aggregate(
+                    t, Peff, Qaug, seg, mu, lo_c, hi_c))
         G = G * nrm_rows[:, None]
         mark('aggregate errors')
         # 5) G rows into item windows, step Y batch after batch (the
@@ -496,12 +522,13 @@ def make_alternating_implicit_epoch(W_user, W_item, lr, lr_y, K, K_y,
         if q_layout.W != W_item:
             raise ValueError('layout window %d != epoch window %d'
                              % (q_layout.W, W_item))
-        if q_layout.segments is not None:
-            window_agg_kernel.step_aggregate(
-                (Ypad,), G.contiguous(), q_layout.segments, decay=(K_y,),
-                step=step_y, row_mean=row_mean)
-        else:
-            y_step_batches(Ypad, G, q_layout, K_y, step_y, row_mean)
+        with profiling.span('svdpp.y_step'):
+            if q_layout.segments is not None:
+                window_agg_kernel.step_aggregate(
+                    (Ypad,), G.contiguous(), q_layout.segments,
+                    decay=(K_y,), step=step_y, row_mean=row_mean)
+            else:
+                y_step_batches(Ypad, G, q_layout, K_y, step_y, row_mean)
         mark('Y step')
         return Paug, Qaug, Ypad, rmse
 

@@ -32,11 +32,20 @@ Three entry points, each with its plain version beside it:
   of ``make_alternating_implicit_epoch`` and ``make_fn_alternating_epoch``
   window by window; ``step_aggregate_ref`` is the plain version.
 
+* ``gather_aggregate(target, src, segments)`` and ``error_aggregate(
+  target, prow, src, segments, mu, lo, hi)``: the SVD++ epoch's two
+  user-side phases in one launch each, ``scan_aggregate`` over rows that
+  the kernel gathers by the table's fixed ids instead of reading them
+  from a [n_ent, k] input -- the sum of each entry's ``src`` row (Y), and
+  of its ``err * src[:, :kt]`` row with the error computed in the kernel
+  from ``prow`` (Peff) and the gathered ``src`` (Qaug).
+  ``gather_aggregate_ref`` and ``error_aggregate_ref`` are the plain
+  versions: the materialized rows, then ``scan_aggregate_ref``.
+
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors -- by where the tensors lie, never by what is
-installed -- and raises for anything else.  ``window_aggregate.launches``,
-``scan_aggregate.launches`` and ``step_aggregate.launches`` count the
-calls that launched a kernel.
+installed -- and raises for anything else.  Each entry's ``launches``
+counts the calls that launched a kernel.
 '''
 from __future__ import annotations
 
@@ -48,6 +57,9 @@ MAX_K = 256
 # the item step runs rows of at least this many entries one 16-warp block
 # each (the hot items), every other row one warp
 STEP_BLOCK_ROW = 512
+# the gathered phases run rows of at least this many entries one 16-warp
+# block each (the heaviest users), every other row one warp
+AGG_BLOCK_ROW = 2048
 
 
 def _bf16(x):
@@ -355,6 +367,123 @@ def step_aggregate(targets, G, segments, coef=(None, None),
 step_aggregate.launches = 0
 
 
+def gather_aggregate_ref(target, src, segments):
+    '''The plain version of ``gather_aggregate``: the gathered rows
+    ``src[ent_fix]`` through ``scan_aggregate_ref``.'''
+    return scan_aggregate_ref(target, src[segments.ent_fix.long()],
+                              segments)
+
+
+def error_aggregate_ref(target, prow, src, segments, mu, lo, hi):
+    '''The plain version of ``error_aggregate``: the rows ``err_e *
+    src[fix_e, :kt]`` materialized as the epoch's source function made
+    them, then ``scan_aggregate_ref``.'''
+    seg = segments
+    kt = target.shape[1]
+    ff = src[seg.ent_fix.long()]
+    pred = torch.as_tensor(mu, dtype=torch.float32) + \
+        (prow[seg.ent_row.long()] * ff).sum(-1)
+    pred = torch.clamp(pred, lo, hi)
+    vals = ((seg.ent_r - pred) * seg.ent_m)[:, None] * ff[:, :kt]
+    return scan_aggregate_ref(target, vals, seg)
+
+
+def _check_gather(target, src, prow, segments):
+    kt = target.shape[1] if target.dim() == 2 else -1
+    k = src.shape[1] if src.dim() == 2 else -1
+    if not 1 <= kt <= k <= MAX_K or (prow is None and kt != k):
+        raise ValueError('target [rows, kt] and src [rows_fix, k]: kt <= k '
+                         '<= %d (kt == k without prow)' % MAX_K)
+    if prow is not None and (prow.dim() != 2 or prow.shape[1] != k):
+        raise ValueError('prow must be [rows, %d]' % k)
+    if segments.max_row >= target.shape[0] or segments.max_fix >= \
+            src.shape[0] or (prow is not None and
+                             segments.max_row >= prow.shape[0]):
+        raise ValueError('the segment table reads past target, prow or src')
+    named = [('target', target), ('src', src)]
+    if prow is not None:
+        named.append(('prow', prow))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise ValueError('%s must be float32, got %s' % (name, t.dtype))
+    named += [('segments.%s' % f, getattr(segments, f))
+              for f in ('blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr',
+                        'ent_fix', 'ent_r', 'ent_m')]
+    for name, t in named:
+        if t.device != target.device:
+            raise ValueError('%s is on %s, target on %s'
+                             % (name, t.device, target.device))
+        if not t.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)
+
+
+def _launch_gather(target, src, prow, segments, mu, lo, hi, name):
+    dev = target.device
+    if dev.type != 'cuda':
+        raise ValueError('%s runs on cuda or cpu tensors, not %s'
+                         % (name, dev))
+    seg = segments
+    n_rows = int(seg.blk_row.shape[0])
+    if n_rows == 0:                     # nothing masked in: no launch
+        return False
+    n_long = int((seg.blk_len >= AGG_BLOCK_ROW).sum())
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.gather_agg_launch(
+            target.data_ptr(), src.data_ptr(),
+            None if prow is None else prow.data_ptr(),
+            seg.blk_row.data_ptr(), seg.blk_seg0.data_ptr(),
+            seg.blk_seg1.data_ptr(), seg.seg_ptr.data_ptr(),
+            seg.ent_fix.data_ptr(), seg.ent_r.data_ptr(),
+            seg.ent_m.data_ptr(), float(mu), float(lo), float(hi),
+            src.shape[1], target.shape[1], n_rows, n_long,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc)
+    return True
+
+
+def gather_aggregate(target, src, segments):
+    '''K4's phase over rows it gathers: for every row of segment table
+    ``segments``, add each of its segments' sums of the bf16-rounded rows
+    ``src[ent_fix]`` (``src [rows_fix, k]`` f32) into ``target [rows, k]``
+    f32, in batch order -- ``scan_aggregate`` of ``src[ent_fix]`` without
+    that [n_ent, k] tensor.  Updates and returns ``target``.  CUDA
+    tensors: one launch of ``csrc/window_agg.cu``; CPU tensors:
+    ``gather_aggregate_ref``.'''
+    _check_gather(target, src, None, segments)
+    if target.device.type == 'cpu':
+        return gather_aggregate_ref(target, src, segments)
+    if _launch_gather(target, src, None, segments, 0.0, 0.0, 0.0,
+                      'gather_aggregate'):
+        gather_aggregate.launches += 1
+    return target
+
+
+gather_aggregate.launches = 0
+
+
+def error_aggregate(target, prow, src, segments, mu, lo, hi):
+    '''K4's phase over error-weighted rows it gathers: for every row x of
+    segment table ``segments`` and each entry e of it, ``err_e = (r_e -
+    clamp(mu + prow[x] . src[fix_e], lo, hi)) * m_e``, and each segment's
+    sum of the bf16-rounded ``err_e * src[fix_e, :kt]`` added into
+    ``target [rows, kt]`` in batch order (``prow [rows, k]``, ``src
+    [rows_fix, k]`` f32, kt <= k; ``lo``/``hi`` +-inf for no clamp).
+    Updates and returns ``target``.  CUDA tensors: one launch of
+    ``csrc/window_agg.cu``, the dot in f32 (a warp's fused multiply-adds);
+    CPU tensors: ``error_aggregate_ref``.'''
+    _check_gather(target, src, prow, segments)
+    if target.device.type == 'cpu':
+        return error_aggregate_ref(target, prow, src, segments, mu, lo, hi)
+    if _launch_gather(target, src, prow, segments, mu, lo, hi,
+                      'error_aggregate'):
+        error_aggregate.launches += 1
+    return target
+
+
+error_aggregate.launches = 0
+
+
 def _raise_on(lib, rc):
     if rc != 0:
         raise RuntimeError('window_agg kernel launch failed: CUDA error %d '
@@ -375,6 +504,9 @@ def _declare(lib):
     lib.step_agg_launch.argtypes = [p, p, p, p, f, f, p, p, p, p, p, p, p, f,
                                     i, i, i, i, i, p]
     lib.step_agg_launch.restype = i
+    lib.gather_agg_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, f, f, f,
+                                      i, i, i, i, p]
+    lib.gather_agg_launch.restype = i
 
 
 def _library():

@@ -25,14 +25,27 @@ Spans of the training path (one tree a ``train()`` call):
   else ``padded_rows`` and their upload), ``als.upload`` (P and Q to the
   device, the alive masks built there), ``als.epochs`` and
   ``wrmf.writeback`` (the factors back as numpy);
+- ``GDRecommender.feature_training_implicit`` (SVD++): root
+  ``svdpp.train``; children ``svdpp.init`` (the factor draws),
+  ``svdpp.bias`` (the overall mean and the BellKor biases),
+  ``svdpp.feedback`` (the rated-feedback arrays and Y = 0),
+  ``svdpp.layouts`` (the W=512 layouts, cached or built),
+  ``svdpp.upload`` (P, Q, the biases, Y and the per-user |N(u)|^-1/2 to
+  the device),
+  ``svdpp.epochs`` (the driver's loop: a ``converge.sync`` an epoch, and
+  inside each epoch, around the launches and without a sync,
+  ``svdpp.aggregate`` twice (the Y sums and the error-weighted Q sums),
+  ``svdpp.half_passes`` and ``svdpp.y_step``) and ``svdpp.writeback``
+  (P, Q and Y back as numpy);
 - set-up: ``store.consolidate`` (the ratings store's sort of pending
   writes) and ``kernel.build:<names>`` (only when ``nvcc`` compiles).
 
 Counters: ``h2d_bytes``, the bytes of the host arrays that ``gd.upload``,
-``als.upload`` and, on a call that builds them, ``wrmf.buckets`` hand
-to the model's device; ``als.layouts_reused``, one for each WRMF
-``train()`` call that found its device buckets kept from an earlier
-call (none on a call that builds them).
+``svdpp.upload``, ``als.upload`` and, on a call that builds them,
+``wrmf.buckets`` hand to the model's device; ``als.layouts_reused``, one
+for each WRMF ``train()`` call that found its device buckets kept from an
+earlier call (none on a call that builds them); ``svdpp.layouts_reused``,
+one for each SVD++ call that found its W=512 layouts kept.
 
 The clock is the one ``torch.profiler``'s host events can be placed on
 (``time.perf_counter_ns``), so a profiled run can lay these spans beside
@@ -131,6 +144,11 @@ def enable():
     '''Start recording spans and counts.'''
     global _on
     _on = True
+
+
+def enabled():
+    '''Whether recording is on.'''
+    return _on
 
 
 def disable():

@@ -17,7 +17,9 @@ order); the fused K2's M and b against a float64 Gram within
 ``chip_smoke.gram_within``'s bound, x within K2's.  K4: counts exactly,
 sums atol 1e-5 + rtol 1e-5 (the same bf16 rows summed in f32 in another
 order); K4's item step: atol 1e-5 plus 1 % of the largest change
-(STEP_UPD_TOL, below).  The SVD++ and FN epochs of
+(STEP_UPD_TOL, below); K4's gathered error phase: K4's tolerance plus
+2^-7 of the largest term, on under 1 % of the elements (AGG_FLIP,
+below).  The SVD++ and FN epochs of
 a CUDA model against a CPU model's, P1 and P2 and the A/B tool's 'old'
 epoch: K1's tolerances.  S1 against its plain version: bit for bit
 (both round every step to f32 in one order, no FMA); the fold-in's new
@@ -625,6 +627,128 @@ def test_scan_aggregate_kernel_matches_plain(cuda, k, mean):
     torch.testing.assert_close(got, want, **K4_TOL)
 
 
+# K4's gathered phases against their plain versions.  The sum mode sums
+# the same bf16 rows as the plain version, in another f32 order where a
+# heavy row's warps split a segment: K4_TOL, or, where that row's long
+# sum cancels, at most twice as far from the float64 sum of the same bf16
+# rows as the plain version (``chip_smoke._k4_ok``, as K4's phase entry
+# is held on the whole ML-10M layouts).  The error mode's dot is a
+# warp's fused multiply-adds where the plain version rounds each product
+# and sums in torch's order, so an error may differ by an f32 ulp and
+# round one term err * q to the neighbouring bf16 value (about one term
+# in 10^5): each such flip moves a row's sum by at most 2^-8 of the
+# largest term, and under 1 % of the elements differ beyond K4_TOL.
+AGG_FLIP = 2.0 ** -7
+
+
+@pytest.mark.parametrize('mode', ['gather', 'error'])
+@pytest.mark.parametrize('k', [3, 64, 100, 256])
+def test_gather_aggregate_kernels_match_plain(cuda, mode, k,
+                                              record_property):
+    '''``gather_aggregate`` and ``error_aggregate`` against their plain
+    versions on a user layout with a heavy user above the block threshold
+    (AGG_BLOCK_ROW) over several batches, users with one rating and users
+    with none; k is the gathered rows' width (the error mode's target is
+    k - 2 wide, as Qaug is to G); a second launch is bit-identical.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    rng = np.random.default_rng(k + len(mode))
+    U, I, N, W = 700, 3000, 40000, 64
+    u = rng.integers(0, U - 100, N).astype(np.int32)
+    u[:5000] = 3                     # a heavy user over several batches
+    u[5000:5040] = np.arange(U - 100, U - 60)       # one rating each
+    i = rng.integers(0, I, N).astype(np.int32)
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    lay = sgd_mf.sorted_pass_layout(u, i, v, 2048, axis='user',
+                                    max_window=W)
+    seg = hk.build_segments(lay[1], lay[2], lay[3], lay[4], lay[5], W, cuda)
+    assert int(seg.blk_len[0]) >= wak.AGG_BLOCK_ROW
+    assert seg.longest_segments >= 2
+    kt = k if mode == 'gather' else k - 2
+    src = torch.from_numpy(rng.normal(0, 1, (I + W, k)).astype(
+        np.float32)).to(cuda)
+    t0 = torch.from_numpy(rng.normal(0, 1, (U + W, kt)).astype(
+        np.float32)).to(cuda)
+    if mode == 'gather':
+        run, ref, args = wak.gather_aggregate, wak.gather_aggregate_ref, \
+            (src, seg)
+    else:
+        prow = torch.from_numpy(rng.normal(0, 0.3, (U + W, k)).astype(
+            np.float32)).to(cuda)
+        run, ref, args = wak.error_aggregate, wak.error_aggregate_ref, \
+            (prow, src, seg, 3.6, 1.0, 5.0)
+    before = run.launches
+    got = run(t0.clone(), *args)
+    again = run(t0.clone(), *args)
+    torch.cuda.synchronize()
+    assert run.launches == before + 2
+    want = ref(t0.clone(), *args)
+    assert torch.equal(got, again)
+    assert torch.equal(got[U - 50:U], t0[U - 50:U])          # no ratings
+    assert float((want - t0).abs().max()) > 0
+    diff = (got - want).abs()
+    tol = K4_TOL['atol'] + K4_TOL['rtol'] * want.abs()
+    if mode == 'gather':
+        import chip_smoke
+        exact = wak.scan_aggregate_ref(t0.double(), src[seg.ent_fix.long()],
+                                       seg)
+        ok, err, k64, p64 = chip_smoke._k4_ok(got, want, exact)
+        record_property('gather_mode', dict(max_abs_err=err,
+                                            kernel_err_f64=k64,
+                                            plain_err_f64=p64))
+        assert ok, (err, k64, p64)
+        return
+    f = seg.ent_fix.long()
+    d = (prow[seg.ent_row.long()] * src[f]).sum(-1) + 3.6
+    terms = ((seg.ent_r - d.clamp(1.0, 5.0)) * seg.ent_m)[:, None] * \
+        src[f][:, :kt]
+    tmax = float(terms.abs().max())
+    over = float((diff > tol).float().mean())
+    record_property('error_mode', dict(max_abs_err=float(diff.max()),
+                                       largest_term=tmax, share_over=over))
+    assert bool((diff <= tol + AGG_FLIP * tmax).all())
+    assert over < 1e-2
+
+
+def test_svdpp_epoch_memory_does_not_scale_with_entries(cuda):
+    '''An SVD++ epoch on a CUDA layout with a segment table holds no
+    tensor of one row an entry: its peak memory above its inputs stays
+    under a few [U, k+2] factor tensors, at a shape where one [n, k] f32
+    tensor would be 50 times that.'''
+    from mfrec_tpu_torch.ops import sgd_mf
+    U, I, N, k, W = 2000, 400, 2_000_000, 100, 512
+    rng = np.random.default_rng(7)
+    u = rng.integers(0, U, N).astype(np.int32)
+    i = rng.integers(0, I, N).astype(np.int32)
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    pl_, ql_ = (sgd_mf.PassLayout(sgd_mf.sorted_pass_layout(
+        u, i, v, 16384, axis=a, max_window=W), a, cuda, segments=True)
+        for a in ('user', 'item'))
+
+    def t(*shape, s=0.05):
+        return torch.from_numpy(rng.normal(0, s, shape).astype(
+            np.float32)).to(cuda)
+
+    Pa, Qa = sgd_mf.augment_factors(t(U + W, k), t(I + W, k),
+                                    t(U + W), t(I + W))
+    Y = t(I + W, k)
+    nrm = torch.full((U + W,), 1.0 / np.sqrt(N / U), device=cuda)
+    ep = sgd_mf.make_alternating_implicit_epoch(
+        W, W, 0.15, 0.15, 0.015, 0.015, inner_steps=4, use_kernel=True)
+    ep(Pa, Qa, Y, 3.6, pl_, ql_, nrm)                 # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    *_, rmse = ep(Pa, Qa, Y, 3.6, pl_, ql_, nrm)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    factor = Pa.nbytes
+    assert np.isfinite(float(rmse))
+    assert above <= 12 * factor, (above, factor)
+    assert above * 50 < N * k * 4, (above, N * k * 4)
+
+
 def _tier_inputs(dev, W=64, k=16, U=500, I=300):
     from mfrec_tpu_torch.data.movielens import synthetic_ratings
     from mfrec_tpu_torch.ops import sgd_mf
@@ -674,16 +798,17 @@ def test_cuda_tier_epochs_match_cpu(cuda, tier):
                 W, W, 0.15, 0.15, 0.15, 0.15, 0.02, 0.007, 0.007,
                 inner_steps=8, use_kernel=True)
             state = (Pa, Qa, X, Y)
-        counts = (hk.half_pass.launches, wak.scan_aggregate.launches,
-                  wak.window_aggregate.launches, wak.step_aggregate.launches)
+        fns = (hk.half_pass, wak.scan_aggregate, wak.gather_aggregate,
+               wak.error_aggregate, wak.window_aggregate, wak.step_aggregate)
+        counts = [f.launches for f in fns]
         for _ in range(2):
             *state, rmse = ep(*state, mu, pl_, ql_, nrm)
-        got = (hk.half_pass.launches - counts[0],
-               wak.scan_aggregate.launches - counts[1],
-               wak.window_aggregate.launches - counts[2],
-               wak.step_aggregate.launches - counts[3])
-        # the item step: one launch per epoch, none per batch
-        assert got == ((4, 4, 0, 2) if dev == 'cuda' else (0, 0, 0, 0))
+        got = tuple(f.launches - c for f, c in zip(fns, counts))
+        # the item step: one launch per epoch, none per batch; SVD++'s
+        # phases through the gathered entries, FN's through scan_aggregate
+        want = (4, 0, 2, 2, 0, 2) if tier == 'implicit' else \
+            (4, 4, 0, 0, 0, 2)
+        assert got == (want if dev == 'cuda' else (0,) * 6)
         out[dev] = [x.cpu() for x in state] + [float(rmse)]
     for a, b in zip(out['cuda'][:-1], out['cpu'][:-1]):
         torch.testing.assert_close(a, b, **K1_TOL)
@@ -721,11 +846,15 @@ def test_cuda_models_train_svdpp_and_fn(cuda):
     fn = FNRecommender(800, 400, {'nbr_features': 16, 'nbr_epochs': 3,
                                   'inner_steps': 8, 'feature_init': 0.05,
                                   'min_improvement': -1.0}, device='cuda')
+    def phase_launches():
+        return (wak.scan_aggregate.launches + wak.gather_aggregate.launches
+                + wak.error_aggregate.launches)
+
     for m, train in ((gd, gd.feature_training_implicit), (fn, fn.train)):
         m.set_ratings(u, i, v)
-        before = wak.scan_aggregate.launches
+        before = phase_launches()
         train()
-        assert wak.scan_aggregate.launches == before + 6
+        assert phase_launches() == before + 6
         h = m.get_rmse_history()
         assert np.isfinite(h).all() and h[-1] < h[0]
         assert isinstance(m.P, np.ndarray) and np.isfinite(m.Y).all()

@@ -1,8 +1,10 @@
 '''``mfrec_tpu_torch.utils.profiling`` on the CPU: off it records nothing;
 on, spans keep their parent, call, thread and order; ``train()`` of a
-GD and of a WRMF model each give their span tree; ``h2d_bytes`` is the
-bytes of the host arrays each upload hands over, counted here apart;
-``kernel.build:<name>`` is recorded only when the compiler runs.'''
+GD and of a WRMF model and a GD model's ``feature_training_implicit()``
+(SVD++) each give their span tree; ``h2d_bytes`` is the bytes of the host
+arrays each upload hands over, counted here apart;
+``svdpp.layouts_reused`` counts the SVD++ calls that found their layouts
+kept; ``kernel.build:<name>`` is recorded only when the compiler runs.'''
 import os
 import stat
 import threading
@@ -17,6 +19,13 @@ from mfrec_tpu_torch.utils import profiling
 
 GD_CHILDREN = ['gd.init', 'gd.bias', 'gd.layouts', 'gd.upload', 'gd.epochs',
                'gd.writeback']
+SVDPP_CHILDREN = ['svdpp.init', 'svdpp.bias', 'svdpp.feedback',
+                  'svdpp.layouts', 'svdpp.upload', 'svdpp.epochs',
+                  'svdpp.writeback']
+# inside each epoch, in order: the Y sums, the half-passes, the error sums,
+# the Y step; then the driver's wait for the epoch's rmse
+SVDPP_EPOCH = ['svdpp.aggregate', 'svdpp.half_passes', 'svdpp.aggregate',
+               'svdpp.y_step', 'converge.sync']
 WRMF_CHILDREN = ['wrmf.init', 'wrmf.feedback', 'wrmf.buckets', 'als.upload',
                  'als.epochs', 'wrmf.writeback']
 
@@ -70,6 +79,7 @@ def _children(spans, parent):
 
 def test_off_records_nothing():
     profiling.collect()
+    assert not profiling.enabled()
     assert profiling.span('a') is profiling.span('b')
     with profiling.span('a'):
         profiling.count('h2d_bytes', 10)
@@ -79,6 +89,7 @@ def test_off_records_nothing():
 
 
 def test_nested_spans_keep_parent_call_thread_and_order(recording):
+    assert profiling.enabled()
     tid = threading.get_native_id()
     with profiling.span('root'):
         with profiling.span('a'):
@@ -149,6 +160,54 @@ def test_gd_h2d_bytes(recording):
     m.train(handle_bias=True)
     U, I, k = 60, 40, 6                # P, Q and the biases in f32
     want = 4 * (U * k + I * k + U + I)
+    assert profiling.collect().counters == {'h2d_bytes': want}
+
+
+def _svdpp(epochs=2):
+    m = GDRecommender(60, 40, {'nbr_features': 6, 'min_epochs': epochs,
+                               'max_epochs': epochs, 'batch_size': 512,
+                               'inner_steps_implicit': 4,
+                               'feature_init': 0.05}, device='cpu')
+    m.seed(3)
+    m.set_ratings(*_stream())
+    m.ratings.nnz
+    profiling.collect()
+    return m
+
+
+def test_svdpp_span_tree(recording):
+    '''Two calls: the second finds its layouts kept (one count); each
+    epoch's spans lie under ``svdpp.epochs`` in phase order.'''
+    m = _svdpp()
+    m.feature_training_implicit()
+    m.feature_training_implicit(initialize_model=False)
+    rec = profiling.collect()
+    roots = [s for s in rec.spans if s.parent is None]
+    assert [s.name for s in roots] == ['svdpp.train', 'svdpp.train']
+    for root in roots:
+        spans = [s for s in rec.spans if s.call == root.id]
+        assert _children(spans, root) == SVDPP_CHILDREN
+        epochs = next(s for s in spans if s.name == 'svdpp.epochs')
+        assert _children(spans, epochs) == SVDPP_EPOCH * 2
+        assert len(spans) == 1 + len(SVDPP_CHILDREN) + 2 * len(SVDPP_EPOCH)
+    assert rec.counters['svdpp.layouts_reused'] == 1
+    # the recording leaves the numbers alone
+    profiling.disable()
+    off = _svdpp()
+    off.feature_training_implicit()
+    off.feature_training_implicit(initialize_model=False)
+    for name in ('P', 'Q', 'Y'):
+        np.testing.assert_array_equal(getattr(off, name), getattr(m, name))
+    assert off.rmse_history == m.rmse_history
+
+
+def test_svdpp_h2d_bytes(recording):
+    '''P, Q, the biases, Y and the per-user norms (padded by the window),
+    in f32; a first call builds its layouts, so nothing is reused.'''
+    m = _svdpp(epochs=1)
+    m.feature_training_implicit()
+    U, I, k, W = 60, 40, 6, 512
+    want = 4 * (U * k + I * k + U + I + I * k + U + W)
     assert profiling.collect().counters == {'h2d_bytes': want}
 
 

@@ -267,3 +267,113 @@ def test_step_aggregate_checks():
             f_: getattr(seg, f_).to('meta') for f_ in (
                 'blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr', 'ent_fix',
                 'ent_m', 'ent_row')}))
+
+
+def _user_case(k, width, seed=11, W=8, U=60, I=40, N=1500, B=64):
+    '''A user layout's segment table (its entries' fixed ids are items)
+    with a heavy user over several batches, users with one rating and
+    users with none; seeded rows to gather ``src [I + W, width]``, the
+    effective user rows ``prow [U + W, width]`` and a non-zero target
+    ``[U + W, k]``.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    rng = np.random.default_rng(seed + k)
+    u = rng.integers(0, U - 10, N).astype(np.int32)
+    u[:300] = 2                                   # several batches
+    u[300:304] = np.arange(U - 10, U - 6)         # one rating each
+    i = rng.integers(0, I, N).astype(np.int32)
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    lay = jax_sgd.sorted_pass_layout(u, i, v, B, axis='user', max_window=W)
+    seg = hk.build_segments(lay[1], lay[2], lay[3], lay[4], lay[5], W, 'cpu')
+    f = {name: torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+         for name, s, shape in (('src', 1.0, (I + W, width)),
+                                ('prow', 0.3, (U + W, width)),
+                                ('T0', 1.0, (U + W, k)))}
+    return seg, f
+
+
+def _per_row_sums(seg, terms, T0):
+    '''``T0`` plus each row's bf16 ``terms`` summed in float64, segment by
+    segment: the order-free answer.'''
+    want = T0.double().clone()
+    t16 = terms.to(torch.bfloat16).double()
+    ptr = seg.seg_ptr.tolist()
+    row = seg.ent_row.tolist()
+    for s in range(len(ptr) - 1):
+        want[row[ptr[s]]] += t16[ptr[s]:ptr[s + 1]].sum(0)
+    return want
+
+
+@pytest.mark.parametrize('k', [3, 64, 100])
+def test_gather_aggregate_plain_is_the_composition(k):
+    '''``gather_aggregate`` on CPU tensors is the composition it replaces
+    -- the rows ``src[ent_fix]`` materialized, then ``scan_aggregate``
+    -- bit for bit, and the float64 sums of the same bf16 rows within
+    TOL; a row with no entry keeps its target, a one-entry row adds its
+    one bf16 row.'''
+    seg, f = _user_case(k, k)
+    assert seg.longest_segments >= 3
+    U = f['T0'].shape[0] - 8
+    got = window_agg_kernel.gather_aggregate(f['T0'].clone(), f['src'], seg)
+    want = window_agg_kernel.scan_aggregate(
+        f['T0'].clone(), f['src'][seg.ent_fix.long()].contiguous(), seg)
+    assert torch.equal(got, want)
+    exact = _per_row_sums(seg, f['src'][seg.ent_fix.long()], f['T0'])
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), **TOL)
+    assert torch.equal(got[U - 6:], f['T0'][U - 6:])            # no entries
+    one = seg.ent_row.tolist().index(U - 10)
+    assert torch.equal(got[U - 10], f['T0'][U - 10] + f['src'][
+        int(seg.ent_fix[one])].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize('clamp', [True, False])
+@pytest.mark.parametrize('k', [3, 64, 100])
+def test_error_aggregate_plain_is_the_composition(k, clamp):
+    '''``error_aggregate`` on CPU tensors is the SVD++ epoch's phase 4 as
+    it was composed -- the err_q rows (``err * Qaug[i][:, :k]``, the
+    error from ``Peff[u] . Qaug[i]``) materialized, then
+    ``scan_aggregate`` -- bit for bit, with the clamp and without (+-inf
+    bounds); and the float64 sums of those bf16 rows within TOL.'''
+    seg, f = _user_case(k, k + 2)
+    mu = torch.tensor(3.6)
+    lo, hi = (1.0, 5.0) if clamp else (-np.inf, np.inf)
+    Peff, Qaug = f['prow'], f['src']
+    u, i, r, m = seg.ent_row.long(), seg.ent_fix.long(), seg.ent_r, seg.ent_m
+    ff = Qaug[i]
+    pred = mu + (Peff[u] * ff).sum(-1)
+    if clamp:
+        pred = sgd_mf.clamp(pred, lo, hi)
+    rows = ((r - pred) * m)[:, None] * ff[:, :k]
+    assert bool(((mu + (Peff[u] * ff).sum(-1) > hi) |
+                 (mu + (Peff[u] * ff).sum(-1) < lo)).any()) or not clamp
+    got = window_agg_kernel.error_aggregate(f['T0'].clone(), Peff, Qaug, seg,
+                                            mu, lo, hi)
+    want = window_agg_kernel.scan_aggregate(f['T0'].clone(),
+                                            rows.contiguous(), seg)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(),
+                               _per_row_sums(seg, rows, f['T0']).numpy(),
+                               **TOL)
+
+
+def test_gathered_entries_check_their_arguments():
+    seg, f = _user_case(6, 8)
+    T0, src, prow = f['T0'], f['src'], f['prow']
+    gather, error = (window_agg_kernel.gather_aggregate,
+                     window_agg_kernel.error_aggregate)
+    with pytest.raises(ValueError):                  # kt != k without prow
+        gather(T0, src, seg)
+    with pytest.raises(ValueError):                  # kt > k
+        error(torch.zeros((T0.shape[0], 9)), prow, src, seg, 3.0, 1.0, 5.0)
+    with pytest.raises(ValueError):                  # prow of another width
+        error(T0, prow[:, :7].contiguous(), src, seg, 3.0, 1.0, 5.0)
+    with pytest.raises(ValueError):                  # src too short
+        gather(T0[:, :6].contiguous(), src[:3, :6].contiguous(), seg)
+    with pytest.raises(ValueError):                  # f64 target
+        error(T0.double(), prow, src, seg, 3.0, 1.0, 5.0)
+    with pytest.raises(ValueError):                  # not contiguous
+        error(T0, prow, src.t().contiguous().t(), seg, 3.0, 1.0, 5.0)
+    with pytest.raises(ValueError):                  # no fallback
+        error(T0.to('meta'), prow.to('meta'), src.to('meta'), seg._replace(
+            **{f_: getattr(seg, f_).to('meta') for f_ in (
+                'blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr', 'ent_fix',
+                'ent_r', 'ent_m', 'ent_row')}), 3.0, 1.0, 5.0)
