@@ -39,7 +39,9 @@ Phase 2  each kernel against its plain PyTorch version on the card:
          k=66; a user batch and the hottest item batch), at W=512, on a
          whole W=512 layout (the phase aggregation), the fused SVD++ /
          FN item step over the W=512 item layout against its plain
-         version and the per-batch loop it replaces, and edge cases.
+         version and the per-batch loop it replaces, and edge cases;
+         B1, the BellKor bias refit, over the W=128 and 512 layouts'
+         tables against its plain version and numpy's refit (one ulp).
          Median times of kernel and plain version.
 Phase 3  the serving slice end to end at the ML-10M shape (69,878 users x
          10,677 items, rank 64): model -> checkpoint -> reload ->
@@ -330,9 +332,10 @@ def ms_or_not(x, spec='%.4f ms'):
 
 def phase1():
     import torch
-    from mfrec_tpu_torch.ops import _cuda_build, cg_kernel, \
-        half_pass_kernel, half_pass_old_kernel, kmf_serial_kernel, \
-        probe_kernel, serial_kernel, topn_kernel, window_agg_kernel
+    from mfrec_tpu_torch.ops import _cuda_build, bias_refit_kernel, \
+        cg_kernel, half_pass_kernel, half_pass_old_kernel, \
+        kmf_serial_kernel, probe_kernel, serial_kernel, topn_kernel, \
+        window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -343,11 +346,11 @@ def phase1():
     k1 = tuple(half_pass_kernel.LIBRARIES.values())
     names = ('topn',) + k1 + ('pcg', 'cg_bucket', 'window_agg',
                               'half_pass_old', 'probe', 'serial_funk',
-                              'kmf_serial')
+                              'kmf_serial', 'bias_refit')
     _cuda_build.build(names)
     for mod in (topn_kernel, cg_kernel, window_agg_kernel,
                 half_pass_old_kernel, probe_kernel, serial_kernel,
-                kmf_serial_kernel):
+                kmf_serial_kernel, bias_refit_kernel):
         mod._library()
     cg_kernel._bucket_library()
     for name in k1:
@@ -1148,6 +1151,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     the shipped defaults (engine auto, batch 16384, T=128, W=128,
     lr 0.15).'''
     from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops.bias_refit_kernel import bias_refit
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     K = 64
@@ -1174,6 +1178,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
 
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     k1_launches = half_pass.launches
+    b1_launches = bias_refit.launches
     epoch_s, marg, hist, h5 = (res['epoch_s'], res['epoch_s_blocks'],
                                res['hist'], res['rmse'])
     T = int(m.inner_steps)
@@ -1193,6 +1198,10 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
                          '%.4f' % (h5[-1], floor))
     if device == 'cuda' and k1_launches == 0:
         raise SystemExit('the training path never launched K1')
+    # the bias refit on the card: two B1 launches a call, 6 calls
+    log('  B1 launches %d (6 calls x 2 passes)' % b1_launches)
+    if device == 'cuda' and b1_launches != 12:
+        raise SystemExit('B1 launched %d times, not 12' % b1_launches)
     # both paths meet: retrieval from the trained model, held to the plain
     # top-n on the same device
     users = np.random.default_rng(3).choice(U, 256, replace=False)
@@ -1203,7 +1212,7 @@ def phase4(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda'):
     if device == 'cuda' and k3_launches == 0:
         raise SystemExit('retrieval from the trained model never launched K3')
     return dict(k1_launches=k1_launches, k3_launches=k3_launches,
-                epoch_s=epoch_s, epoch_s_blocks=marg, updates_per_s=updates,
+                b1_launches=b1_launches, epoch_s=epoch_s, epoch_s_blocks=marg, updates_per_s=updates,
                 rmse=h5, floor=floor, warmup_s=res['warmup_s'])
 
 
@@ -1873,6 +1882,97 @@ def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
     return rec
 
 
+def b1_bound(p_seg, q_seg, n_items):
+    '''B1's least time for both passes: the bytes they must move (the
+    item table's ent_r and the user table's ent_r and ent_fix once, 24
+    bytes a row for the row list, its offsets and the output, the item
+    biases once) over the memory rate; its operations (a subtraction and
+    an add an entry, one more in the user pass) are far below the FP32
+    peak.'''
+    n_i, n_u = int(q_seg.ent_r.numel()), int(p_seg.ent_r.numel())
+    rows = int(q_seg.blk_row.numel()) + int(p_seg.blk_row.numel())
+    return roofline_ms(2.0 * n_i + 3.0 * n_u,
+                       4.0 * n_i + 8.0 * n_u + 24.0 * rows + 4.0 * n_items)
+
+
+def b1_case(name, lay_user, lay_item, W, U, I, nnz, iters=0,
+            device='cuda'):
+    '''B1 (``bias_refit``: the item pass, then the user pass over the
+    item biases) over the segment tables of the sorted-pass layouts
+    ``lay_user``, ``lay_item`` at window W, against its plain version on
+    the card and the numpy refit of a CPU model over the same store
+    (``unique_stream``): within one f32 ulp an element (counted: the
+    elements that differ at all), a second launch bit-identical.  With
+    ``iters`` the two passes' time by CUDA events (host included), the
+    kernel's device time (torch.profiler), the plain version's and the
+    numpy refit's (host clock), and the bound.'''
+    import torch
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops import bias_refit_kernel as b1
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    dev = torch.device(device)
+    p_seg = hk.build_segments(lay_user[1], lay_user[2], lay_user[3],
+                              lay_user[4], lay_user[5], W, dev)
+    q_seg = hk.build_segments(lay_item[0], lay_item[2], lay_item[3],
+                              lay_item[4], lay_item[5], W, dev)
+    m = GDRecommender(U, I, device='cpu')
+    m.set_ratings(*unique_stream(U, I, nnz))
+    m.compute_overall_avg()
+    t0 = time.perf_counter()
+    m.compute_items_bias_bk()
+    m.compute_users_bias_bk()
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    mu, K2, K3 = m.overall_bias, m.K2, m.K3
+
+    def run():
+        bi = b1.bias_refit(q_seg, I, mu, K3)
+        return bi, b1.bias_refit(p_seg, U, mu, K2, bi=bi)
+
+    def plain():
+        bi = b1.bias_refit_ref(q_seg, I, mu, K3)
+        return bi, b1.bias_refit_ref(p_seg, U, mu, K2, bi=bi)
+
+    got = [t.cpu().numpy() for t in run()]
+    again = [t.cpu().numpy() for t in run()]
+    want = [t.cpu().numpy() for t in plain()]
+    host = [m.items_bias, m.users_bias]
+    same = all(np.array_equal(a, b) for a, b in zip(got, again))
+
+    def ulps(a, b):
+        return int(np.abs(a.view(np.int32).astype(np.int64)
+                          - b.view(np.int32).astype(np.int64)).max())
+
+    ulp_plain = max(ulps(a, b) for a, b in zip(got, want))
+    ulp_numpy = max(ulps(a, b) for a, b in zip(got, host))
+    differ = sum(int((a != b).sum()) for a, b in zip(got, host))
+    ok = same and ulp_plain <= 1 and ulp_numpy <= 1 and \
+        all(np.isfinite(a).all() for a in got)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, host))
+    rec = {'case': name, 'W': W, 'entries': int(q_seg.ent_r.numel()),
+           'rows': int(q_seg.blk_row.numel() + p_seg.blk_row.numel()),
+           'longest_row': q_seg.longest, 'ok': ok, 'max_abs_err': err,
+           'max_ulp_plain': ulp_plain, 'max_ulp_numpy': ulp_numpy,
+           'elements_off_numpy': differ, 'numpy_ms': numpy_ms}
+    if iters:
+        rec['ms'] = timed_ms(run, iters)
+        rec['plain_ms'] = timed_ms(plain, max(2, iters // 5))
+        rec['device_ms'] = kernel_device_ms(run, 'bias_refit_kernel')[0] \
+            if dev.type == 'cuda' else None
+        if rec['device_ms'] is not None:
+            rec['device_ms'] *= 2          # two launches a call
+        rec['bound_ms'], rec['bound_by'] = b1_bound(p_seg, q_seg, I)
+    del p_seg, q_seg
+    log('  %-44s ok=%s max_abs_err=%.3g (ulps from the plain version %d, '
+        'from numpy %d, %d elements off numpy; %d entries, longest row %d)%s'
+        % (name, ok, err, ulp_plain, ulp_numpy, differ, rec['entries'],
+           rec['longest_row'],
+           ' kernel %.4f ms (device %s), plain %.3f ms, numpy %.1f ms, '
+           'bound %.4f ms' % (rec['ms'], ms_or_not(rec['device_ms']),
+                              rec['plain_ms'], numpy_ms, rec['bound_ms'])
+           if iters else ''))
+    return rec
+
+
 def step_bound(seg, k, nt, weighted):
     '''The item step's least time: the bytes its inputs need (the
     table's ent_fix and ent_m, the per-entry weights when ``weighted``,
@@ -1967,7 +2067,8 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     aggregation phases, k=64) and item layout (its hot rows); K4g, the
     gathered phases of SVD++ (the Y sums and the error-weighted Q sums),
     on the whole W=512 user layout at rank 64 and 100 and on a user of
-    about 17,700 ratings.'''
+    about 17,700 ratings; and B1, the bias refit, over the W=128 and
+    W=512 layouts' tables.'''
     import torch
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     log('phase 2: K4 against its plain version (counts exact, sums atol %g '
@@ -2080,6 +2181,10 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     seg = hk.build_segments(L[0], L[2], L[3], L[4], L[5], 64, dev)
     steps.append(step_case('item step: reduced FN, k=128 x 2', 'fn', seg,
                            sgd_mf.PassLayout(L, 'item', dev), 128, seed=8))
+    # B1, the BellKor refit, over both W's tables (gd's and svdpp's)
+    refits = [b1_case('B1 bias refit: W=%d layouts' % W, lay['user', W],
+                      lay['item', W], W, U, I, nnz, iters=20 if W == 512
+                      else 0, device=device) for W in (128, 512)]
     for r in recs + scans:
         if 'ms' in r:
             log('  time %-44s kernel %.4f ms, plain %.4f ms, index_add_ '
@@ -2100,11 +2205,12 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
             'bound %.4f ms (%s)  [%s]'
             % (r['case'], r['ms'], r.get('device_ms', -1.0), r['plain_ms'],
                r['bound_ms'], r['bound_by'], card))
-    bad = [r['case'] for r in recs + scans + steps + gathers if not r['ok']]
+    bad = [r['case'] for r in recs + scans + steps + gathers + refits
+           if not r['ok']]
     if bad:
-        raise SystemExit('phase 2 (K4) failed: %s' % bad)
+        raise SystemExit('phase 2 (K4, B1) failed: %s' % bad)
     return {'recs': recs, 'scans': scans, 'steps': steps,
-            'gathers': gathers}
+            'gathers': gathers, 'refits': refits}
 
 
 def make_implicit_data(U, I, N, seed=0, clusters=32, heldout_per_user=3):
@@ -2624,6 +2730,7 @@ def k4_launches():
 
 
 def zero_launch_counts():
+    from mfrec_tpu_torch.ops.bias_refit_kernel import bias_refit
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.kmf_serial_kernel import kmf_serial_converge
     from mfrec_tpu_torch.ops.serial_kernel import serial_converge
@@ -2635,7 +2742,8 @@ def zero_launch_counts():
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
                gather_aggregate, error_aggregate, window_aggregate,
-               step_aggregate, serial_converge, kmf_serial_converge):
+               step_aggregate, serial_converge, kmf_serial_converge,
+               bias_refit):
         fn.launches = 0
     serial_converge.epochs = kmf_serial_converge.epochs = 0
 
@@ -2863,6 +2971,7 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
+    from mfrec_tpu_torch.ops.bias_refit_kernel import bias_refit
     card = card_line()
     t0 = time.perf_counter()
     m = GDRecommender(U, I, SVDPP_PARAMS, device=device)
@@ -2881,6 +2990,7 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     res.update(k1_launches=half_pass.launches,
+               b1_launches=bias_refit.launches,
                k4_scan_launches=scan_aggregate.launches,
                k4g_launches=k4g_launches(),
                k4_call_launches=window_aggregate.launches,
@@ -2888,6 +2998,10 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
     check_tier_run('phase 6', res, device, q_batches, card, 'svdpp')
+    log('  B1 launches %d (6 calls x 2 passes)' % res['b1_launches'])
+    if device == 'cuda' and res['b1_launches'] != 12:
+        raise SystemExit('phase 6: B1 launched %d times, not 12'
+                         % res['b1_launches'])
     epoch, state, args = m._implicit_epoch()
     res['split'] = tier_split(epoch, state, args, device)
     del epoch, state, args
@@ -3586,6 +3700,32 @@ def k4_entry(k4, svdpp, fn):
         'step_enqueue_ms_svdpp': split(svdpp, 'Y step').get('host_ms'),
         'step_device_ms_fn': split(fn, 'X/Y step').get('device_ms'),
         'step_enqueue_ms_fn': split(fn, 'X/Y step').get('host_ms')}]
+
+
+def b1_entry(k4, train, svdpp):
+    '''B1's entry of the kernels line: the bias refit over the ML-10M W=512
+    layouts' tables (both passes), launches over phases 4 and 6's timed
+    calls.'''
+    if not k4 or not k4.get('refits'):
+        return []
+    r = next(x for x in k4['refits'] if 'ms' in x)
+    runs = [x for x in (train, svdpp) if x]
+    return [{
+        'name': 'bias_refit (B1, BellKor bias refit over the segment tables)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/bias_refit.cu',
+        'replaces': 'numpy on the host: mfrec_tpu/models/mf.py '
+                    'compute_items_bias_bk, compute_users_bias_bk',
+        'launches': sum(x['b1_launches'] for x in runs) if runs else None,
+        'max_abs_err': max(x['max_abs_err'] for x in k4['refits']),
+        'max_ulp_numpy': max(x['max_ulp_numpy'] for x in k4['refits']),
+        'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': None,
+        'device_ms': r['device_ms'], 'numpy_ms': r['numpy_ms'],
+        'shape': 'item then user pass over the ML-10M W=512 layouts\' '
+                 'tables: %d ratings; ms and plain_ms CUDA events around one '
+                 'call (host included), device_ms the kernel\'s own time '
+                 '(torch.profiler), numpy_ms the host refit it replaces'
+                 % r['entries']}]
 
 
 # S1 against its plain version on the card: bit for bit; its converge
@@ -5583,6 +5723,7 @@ def main(argv=None):
                                     pk.get('k1', [])), default=None),
             'epoch_s_kmf': pk.get('epoch_s')}]
             + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)
+            + b1_entry(k4, train, svdpp)
             + probe_entries(p8) + serial_entry(s1, p9)
             + kmf_entry(s2, pk)}))
     log(card_line())

@@ -33,6 +33,13 @@ rating (the Netflix Prize shape at 100 factors fits one H100).  The
 factors stay on the device across epochs (one host sync per epoch, the
 RMSE the convergence rule reads) and come back as numpy at the end.
 
+The fixed BellKor biases (``train(handle_bias=True)``,
+``feature_training_bias``, ``feature_training_implicit``) are refit from
+the ratings on every call: on a CUDA model on the alternating engine on
+the card, by the hand-written B1 (``csrc/bias_refit.cu``) over the
+layouts' segment tables, which the call fetches first; else with numpy
+on the host (``MFRecommender.compute_items_bias_bk``).
+
 ``engine='auto'`` means ``'alternating'``: a port model lives on one
 explicit device, where the JAX model picks ``alternating_sharded`` when
 ``len(jax.devices()) > 1``.  The multi-device engines (``'dsgd'``,
@@ -104,6 +111,9 @@ class GDRecommender(MFRecommender):
                         'sharded_pallas_half': 'sharded_pallas_half'}
 
     _default_predictor_mode = 'dot_plus_one'
+    # the single-device engines and the methods that run them
+    _RUNS = {'alternating': '_run_alternating', 'fused': '_run_fused',
+             'funk': '_run_funk', 'funk_fused': '_run_funk_fused'}
 
     def __init__(self, nbr_users=4, nbr_items=6, parameters=None,
                  filename=False, device='cuda'):
@@ -395,16 +405,19 @@ class GDRecommender(MFRecommender):
         return lr, lr_bu, lr_bi
 
     # ------------------------------------------------- alternating engine
+    def _sgd_window(self):
+        '''The alternating SGD engine's layout window W.'''
+        return min(128, max(self.nbr_users, self.nbr_items))
+
     def _run_alternating(self, bias_mode, verbose=False):
         '''Sorted-window alternating epochs
         (``ops.sgd_mf.make_alternating_epoch``) under the convergence
         driver, with ``lr_decay`` and ``lr_plateau_decay``.'''
         lr, lr_bu, lr_bi = self._alt_lrs()
-        mw = min(128, max(self.nbr_users, self.nbr_items))
         decay, plateau = self._lr_schedule()
-        with profiling.span('gd.layouts'):
-            p_layout, q_layout, W_user, W_item = \
-                self._alternating_layouts(mw)
+        # kept on the store: the call's fetch (``_call_layouts``) built them
+        p_layout, q_layout, W_user, W_item = \
+            self._alternating_layouts(self._sgd_window())
         with profiling.span('gd.upload'):
             state = self._state(with_bias=(bias_mode != 'none'))
             profiling.count('h2d_bytes', sum(
@@ -530,15 +543,36 @@ class GDRecommender(MFRecommender):
         with profiling.span('gd.train'):
             with profiling.span('gd.init'):
                 self._init_factors(initialize_model)
+            engine = self._checked_engine()
+            layouts = self._call_layouts(engine)
             if handle_bias:
-                with profiling.span('gd.bias'):
-                    self.compute_overall_avg()
-                    self.compute_items_bias_bk()
-                    self.compute_users_bias_bk()
-                mode = 'fixed'
+                self._bellkor_biases('gd.bias', layouts)
+            self._dispatch_engine(engine, 'fixed' if handle_bias else 'none',
+                                  verbose)
+
+    def _call_layouts(self, engine):
+        '''On the alternating engine, the call's layouts, fetched first
+        (span ``gd.layouts``): the bias refit reads their segment tables
+        on a CUDA model, and ``_run_alternating`` finds them kept on the
+        store.  None on the other engines.'''
+        if engine != 'alternating':
+            return None
+        with profiling.span('gd.layouts'):
+            return self._alternating_layouts(self._sgd_window())
+
+    def _bellkor_biases(self, span, layouts):
+        '''The overall mean and the BellKor biases, in span ``span``: on
+        the card (``compute_biases_bk_on_device``) when ``layouts`` are
+        the alternating engine's with segment tables, which only a CUDA
+        model builds; numpy (``compute_items_bias_bk``,
+        ``compute_users_bias_bk``) otherwise.'''
+        with profiling.span(span):
+            self.compute_overall_avg()
+            if layouts is not None and layouts[0].segments is not None:
+                self.compute_biases_bk_on_device(layouts[0], layouts[1])
             else:
-                mode = 'none'
-            self._dispatch_engine(mode, verbose)
+                self.compute_items_bias_bk()
+                self.compute_users_bias_bk()
 
     def _lr_schedule(self):
         '''(lr_decay, lr_plateau_decay), each checked to lie in (0, 1].'''
@@ -552,11 +586,11 @@ class GDRecommender(MFRecommender):
                         % self.lr_plateau_decay)
         return decay, plateau
 
-    def _dispatch_engine(self, mode, verbose):
-        '''Route ``self.engine`` (``'auto'`` = ``'alternating'``) to its
-        tier, with the JAX model's refusals of the options only
-        ``'alternating'`` wires (``mfrec_tpu/models/gd.py:960-1011``);
-        ``resilience > 0`` and the multi-device engines raise.'''
+    def _checked_engine(self):
+        '''``self.engine`` resolved (``'auto'`` = ``'alternating'``), with
+        the JAX model's refusals of the options only ``'alternating'``
+        wires (``mfrec_tpu/models/gd.py:960-1011``); ``resilience > 0``
+        and the multi-device engines raise.'''
         engine = self.engine
         if engine == 'auto':
             engine = 'alternating'
@@ -589,12 +623,13 @@ class GDRecommender(MFRecommender):
                 'engine %r is not ported yet (ROADMAP %s); use a '
                 "single-device engine ('alternating', 'fused', 'funk' or "
                 "'funk_fused')" % (engine, _UNPORTED_ENGINES[engine]))
-        runs = {'alternating': self._run_alternating,
-                'fused': self._run_fused, 'funk': self._run_funk,
-                'funk_fused': self._run_funk_fused}
-        if engine not in runs:
+        if engine not in self._RUNS:
             raise Error('unknown engine %r' % (engine,))
-        runs[engine](mode, verbose=verbose)
+        return engine
+
+    def _dispatch_engine(self, engine, mode, verbose):
+        '''Run ``engine`` (from ``_checked_engine``) in bias ``mode``.'''
+        getattr(self, self._RUNS[engine])(mode, verbose=verbose)
 
     train = feature_training
 
@@ -603,10 +638,9 @@ class GDRecommender(MFRecommender):
         '''SGD with learned biases (reference gradient_descent.py:472-503)
         on the same engine: the BellKor biases are the starting point.'''
         self._init_factors(initialize_model)
-        self.compute_overall_avg()
-        self.compute_items_bias_bk()
-        self.compute_users_bias_bk()
-        self._dispatch_engine('learned', verbose)
+        engine = self._checked_engine()
+        self._bellkor_biases('gd.bias', self._call_layouts(engine))
+        self._dispatch_engine(engine, 'learned', verbose)
 
     def feature_training_implicit(self, initialize_model=True,
                                   verbose=False):
@@ -619,18 +653,20 @@ class GDRecommender(MFRecommender):
         with profiling.span('svdpp.train'):
             with profiling.span('svdpp.init'):
                 self._init_factors(initialize_model, sequential=False)
-            with profiling.span('svdpp.bias'):
-                self.compute_overall_avg()
-                self.compute_items_bias_bk()
-                self.compute_users_bias_bk()
-            with profiling.span('svdpp.feedback'):
-                self.initialize_rated_feedback()
-                self.Y = np.zeros_like(self.Q)
             if self.engine == 'alternating_sharded':
                 raise NotImplementedError(
                     "engine 'alternating_sharded' is not ported yet (ROADMAP "
                     "%s); use engine='alternating'"
                     % _UNPORTED_ENGINES['alternating_sharded'])
+            # the call's layouts first: the refit reads their segment
+            # tables on a CUDA model, and _implicit_epoch finds them kept
+            with profiling.span('svdpp.layouts'):
+                layouts = self._alternating_layouts(
+                    512, reused_counter='svdpp.layouts_reused')
+            self._bellkor_biases('svdpp.bias', layouts)
+            with profiling.span('svdpp.feedback'):
+                self.initialize_rated_feedback()
+                self.Y = np.zeros_like(self.Q)
             self._run_alternating_implicit(verbose=verbose)
 
     def _implicit_epoch(self, use_kernel=None):
@@ -641,14 +677,12 @@ class GDRecommender(MFRecommender):
         W=512 layouts, ``inner_steps_implicit`` sweeps, the fixed side in
         f32 (bf16 rounding hurts the Y-coupled convergence:
         ``mfrec_tpu/models/gd.py:724-726``).  ``use_kernel`` defaults to
-        whether the model is on a CUDA device.  Spans ``svdpp.layouts``
-        and ``svdpp.upload``, and the counters ``svdpp.layouts_reused``
-        and ``h2d_bytes``.'''
+        whether the model is on a CUDA device.  The layouts come from the
+        store's cache (``feature_training_implicit`` fetched them first);
+        span ``svdpp.upload`` and the counter ``h2d_bytes``.'''
         lr, _, _ = self._alt_lrs()
         # the aggregation phases couple rows across the batch: W=512
-        with profiling.span('svdpp.layouts'):
-            p_layout, q_layout, W_user, W_item = self._alternating_layouts(
-                512, reused_counter='svdpp.layouts_reused')
+        p_layout, q_layout, W_user, W_item = self._alternating_layouts(512)
         with profiling.span('svdpp.upload'):
             state = self._state(with_bias=True)
             Y = torch.from_numpy(np.array(self.Y, np.float32)).to(

@@ -127,6 +127,27 @@ class MFRecommender(BaseRecommender):
         bias[counts == 0] = 0.0
         self.users_bias = np.nan_to_num(bias).astype(np.float32)
 
+    def compute_biases_bk_on_device(self, p_layout, q_layout):
+        '''``compute_items_bias_bk`` then ``compute_users_bias_bk`` over
+        the ratings the alternating engine's layouts hold on the card:
+        B1 (``ops.bias_refit_kernel``) over ``q_layout``'s segment table
+        (item-axis) for the item biases, then over ``p_layout``'s
+        (user-axis) for the user biases, with numpy's arithmetic (f32
+        residuals, f64 sums), so within an f32 ulp of it.  The biases come
+        back as numpy f32.  Counts ``bias.device_refits``.'''
+        from mfrec_tpu_torch.ops import bias_refit_kernel
+        if not self.overall_bias:
+            self.compute_overall_avg()
+        mu = self.overall_bias
+        bi = bias_refit_kernel.bias_refit(q_layout.segments, self.nbr_items,
+                                          mu, getattr(self, 'K3', 0.01))
+        bu = bias_refit_kernel.bias_refit(p_layout.segments, self.nbr_users,
+                                          mu, getattr(self, 'K2', 0.01),
+                                          bi=bi)
+        self.items_bias = bi.cpu().numpy()
+        self.users_bias = bu.cpu().numpy()
+        profiling.count('bias.device_refits', 1)
+
     # ---------------------------------------------------------- prediction
     def predict_rating_by_label(self, user_label, item_label,
                                 predictor='predict'):

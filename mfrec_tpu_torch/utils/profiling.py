@@ -13,9 +13,10 @@ recorded and clears it.
 Spans of the training path (one tree a ``train()`` call):
 
 - ``GDRecommender.train`` on the alternating engine: root ``gd.train``;
-  children ``gd.init`` (factor init), ``gd.bias`` (the overall mean and
-  the BellKor biases), ``gd.layouts`` (the sorted-pass layouts, cached
-  or built), ``gd.upload`` (the state to the device, padded and
+  children ``gd.init`` (factor init), ``gd.layouts`` (the sorted-pass
+  layouts, cached or built), ``gd.bias`` (the overall mean and the
+  BellKor biases: on a CUDA model from the layouts' segment tables on
+  the card), ``gd.upload`` (the state to the device, padded and
   augmented), ``gd.epochs`` (the convergence driver's loop, with one
   ``converge.sync`` an epoch around the wait for its rmse) and
   ``gd.writeback`` (the factors back as numpy);
@@ -27,9 +28,10 @@ Spans of the training path (one tree a ``train()`` call):
   ``wrmf.writeback`` (the factors back as numpy);
 - ``GDRecommender.feature_training_implicit`` (SVD++): root
   ``svdpp.train``; children ``svdpp.init`` (the factor draws),
-  ``svdpp.bias`` (the overall mean and the BellKor biases),
-  ``svdpp.feedback`` (the rated-feedback arrays and Y = 0),
   ``svdpp.layouts`` (the W=512 layouts, cached or built),
+  ``svdpp.bias`` (the overall mean and the BellKor biases, on a CUDA
+  model on the card, as ``gd.bias``),
+  ``svdpp.feedback`` (the rated-feedback arrays and Y = 0),
   ``svdpp.upload`` (P, Q, the biases, Y and the per-user |N(u)|^-1/2 to
   the device),
   ``svdpp.epochs`` (the driver's loop: a ``converge.sync`` an epoch, and
@@ -45,7 +47,11 @@ Counters: ``h2d_bytes``, the bytes of the host arrays that ``gd.upload``,
 ``wrmf.buckets`` hand to the model's device; ``als.layouts_reused``, one
 for each WRMF ``train()`` call that found its device buckets kept from an
 earlier call (none on a call that builds them); ``svdpp.layouts_reused``,
-one for each SVD++ call that found its W=512 layouts kept.
+one for each SVD++ call that found its W=512 layouts kept;
+``bias.device_refits``, one for each BellKor refit that ran on the card
+(``MFRecommender.compute_biases_bk_on_device``: a CUDA model's ``train(
+handle_bias=True)``, ``feature_training_bias()`` and
+``feature_training_implicit()`` on the alternating engine).
 
 The clock is the one ``torch.profiler``'s host events can be placed on
 (``time.perf_counter_ns``), so a profiled run can lay these spans beside

@@ -1,4 +1,4 @@
-'''K3, K1, K2, K4, P1, P2, S1 and S2 on a CUDA device: each kernel against its
+'''K3, K1, K2, K4, P1, P2, S1, S2 and B1 on a CUDA device: each kernel against its
 plain version, and a CUDA model against the same model on the CPU.  Every case
 is marked ``gpu`` and skips without a card.  This file imports no JAX,
 so on a GPU host without it run it alone, without the suite's conftest:
@@ -33,7 +33,9 @@ past shared memory too; a CUDA KMF model against a CPU one: the alternating tier
 history within 1e-2 relative and its factors within K1's tolerance (K1
 reads the window in bf16, the CPU model's XLA-branch math in f32), the
 fold-in's new row and rmse within 1e-6 (the CPU's exp may differ from
-the card's by an ulp).'''
+the card's by an ulp).  B1 against its plain version and the numpy
+refit: within one f32 ulp (f64 sums in another order), a second launch
+bit-identical.'''
 import numpy as np
 import pytest
 import torch
@@ -1680,3 +1682,123 @@ def test_cuda_kmf_matches_cpu(cuda):
     np.testing.assert_allclose(rows['cuda'][1], rows['cpu'][1], atol=1e-6,
                                rtol=0)
     assert rows['cuda'][2] == rows['cpu'][2]
+
+
+# ----------------------------------------------------------------- B1
+# B1, the BellKor bias refit on the card, against its plain version and
+# the numpy refit: within one f32 ulp an element (only the f64 sums'
+# order differs), rows with no rating exactly 0, a second launch
+# bit-identical
+B1_U, B1_I, B1_B = 3_000, 260, 256
+
+
+def _b1_model(device, hot, seed=0, **params):
+    '''A GD model of B1_U users and B1_I items: user B1_U - 1 and item
+    B1_I - 1 never rated, item 0 rated by ``hot`` users (one of B1's
+    block rows past BLOCK_ROW), half stars.'''
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    rng = np.random.default_rng(seed)
+    n = 30_000 + hot
+    u = rng.integers(0, B1_U - 1, n).astype(np.int32)
+    i = rng.integers(1, B1_I - 1, n).astype(np.int32)
+    u[:hot] = np.arange(hot) % (B1_U - 1)
+    i[:hot] = 0
+    v = (rng.integers(2, 11, n) / 2.0).astype(np.float32)
+    m = GDRecommender(B1_U, B1_I, dict({
+        'nbr_features': 4, 'batch_size': B1_B, 'min_epochs': 1,
+        'max_epochs': 1, 'inner_steps': 2, 'inner_steps_implicit': 2,
+        'feature_init': 0.05, 'engine': 'alternating'}, **params),
+        device=device)
+    m.seed(3)
+    m.set_ratings(u, i, v)
+    return m
+
+
+def _b1_numpy(m):
+    m.compute_overall_avg()
+    m.compute_items_bias_bk()
+    m.compute_users_bias_bk()
+    return m.items_bias.copy(), m.users_bias.copy()
+
+
+@pytest.mark.parametrize('hot', [2_600, 2_999])
+@pytest.mark.parametrize('W', [128, 512])
+def test_bias_refit_kernel_matches_twin_and_numpy(cuda, W, hot):
+    from mfrec_tpu_torch.ops import bias_refit_kernel as b1
+    from mfrec_tpu_torch.ops import sgd_mf
+    m = _b1_model('cpu', hot, regularization_users_bias=25.0,
+                  regularization_items_bias=10.0)
+    want_i, want_u = _b1_numpy(m)
+    mu = m.overall_bias
+    u, i, v = m.ratings.coo()
+    tabs = {dev: tuple(sgd_mf.PassLayout(sgd_mf.sorted_pass_layout(
+        u, i, v, B1_B, axis=axis, max_window=W), axis, dev,
+        segments=True).segments for axis in ('user', 'item'))
+        for dev in ('cuda', 'cpu')}
+    p_seg, q_seg = tabs['cuda']
+    assert q_seg.longest == hot > b1.BLOCK_ROW
+    before = b1.bias_refit.launches
+    runs = []
+    for _ in range(2):
+        bi = b1.bias_refit(q_seg, B1_I, mu, 10.0)
+        bu = b1.bias_refit(p_seg, B1_U, mu, 25.0, bi=bi)
+        runs.append((bi.cpu().numpy(), bu.cpu().numpy()))
+    assert b1.bias_refit.launches - before == 4
+    (gi, gu), (gi2, gu2) = runs
+    assert np.array_equal(gi, gi2) and np.array_equal(gu, gu2)
+    for dev, (ps, qs) in tabs.items():
+        ti = b1.bias_refit_ref(qs, B1_I, mu, 10.0)
+        tu = b1.bias_refit_ref(ps, B1_U, mu, 25.0, bi=ti)
+        np.testing.assert_array_max_ulp(gi, ti.cpu().numpy(), maxulp=1)
+        np.testing.assert_array_max_ulp(gu, tu.cpu().numpy(), maxulp=1)
+    np.testing.assert_array_max_ulp(gi, want_i, maxulp=1)
+    np.testing.assert_array_max_ulp(gu, want_u, maxulp=1)
+    assert gi[B1_I - 1] == 0 and gu[B1_U - 1] == 0
+    assert np.abs(want_i).max() > 0.1 and np.abs(want_u).max() > 0.1
+
+
+@pytest.mark.parametrize('entry', ['train', 'feature_training_bias',
+                                   'feature_training_implicit',
+                                   'train_fused'])
+def test_cuda_model_refits_on_the_card(cuda, entry):
+    '''A CUDA model on the alternating engine refits its biases on the
+    card: one ``bias.device_refits`` a call, its layouts fetched before
+    the refit, the biases within an ulp of a CPU model's numpy refit; the
+    fused engine and a CPU model count none.'''
+    from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.utils import profiling
+    seen, counts = {}, {}
+    orig = GDRecommender._dispatch_engine
+
+    def spy(self, engine, mode, verbose):
+        seen[self.device.type] = (self.items_bias.copy(),
+                                  self.users_bias.copy())
+        return orig(self, engine, mode, verbose)
+
+    for dev in ('cuda', 'cpu'):
+        m = _b1_model(dev, 2_600, **({'engine': 'fused'}
+                                     if entry == 'train_fused' else {}))
+        profiling.collect()
+        profiling.enable()
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(GDRecommender, '_dispatch_engine', spy)
+                for _ in range(2):
+                    if entry.startswith('train'):
+                        m.train(handle_bias=True)
+                    else:
+                        getattr(m, entry)()
+            rec = profiling.collect()
+        finally:
+            profiling.disable()
+        counts[dev] = rec.counters.get('bias.device_refits', 0)
+        if entry != 'feature_training_bias':
+            seen[dev] = (m.items_bias, m.users_bias)
+        names = [s.name for s in rec.spans if s.name.endswith(
+            ('.layouts', '.bias'))]
+        if entry != 'train_fused':
+            pre = 'svdpp' if entry.endswith('implicit') else 'gd'
+            assert names == [pre + '.layouts', pre + '.bias'] * 2
+    assert counts == {'cuda': 0 if entry == 'train_fused' else 2, 'cpu': 0}
+    for got, want in zip(seen['cuda'], seen['cpu']):
+        np.testing.assert_array_max_ulp(got, want, maxulp=1)

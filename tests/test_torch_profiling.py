@@ -17,10 +17,12 @@ from mfrec_tpu_torch.models.wrmf import WRMFRecommender
 from mfrec_tpu_torch.ops import _cuda_build
 from mfrec_tpu_torch.utils import profiling
 
-GD_CHILDREN = ['gd.init', 'gd.bias', 'gd.layouts', 'gd.upload', 'gd.epochs',
+# the layouts before the bias refit, which reads their segment tables on
+# a CUDA model
+GD_CHILDREN = ['gd.init', 'gd.layouts', 'gd.bias', 'gd.upload', 'gd.epochs',
                'gd.writeback']
-SVDPP_CHILDREN = ['svdpp.init', 'svdpp.bias', 'svdpp.feedback',
-                  'svdpp.layouts', 'svdpp.upload', 'svdpp.epochs',
+SVDPP_CHILDREN = ['svdpp.init', 'svdpp.layouts', 'svdpp.bias',
+                  'svdpp.feedback', 'svdpp.upload', 'svdpp.epochs',
                   'svdpp.writeback']
 # inside each epoch, in order: the Y sums, the half-passes, the error sums,
 # the Y step; then the driver's wait for the epoch's rmse
