@@ -4193,7 +4193,7 @@ def state_transfer_ms(m, reps=5):
     ``reps``), and the MB moved up: what a fold-in would move if
     ``_run_funk`` did not move only the stream's rows.'''
     import torch
-    from mfrec_tpu_torch.models.gd import _host
+    from mfrec_tpu_torch.models.mf import _host
     up, down = [], []
     for _ in range(reps):
         torch.cuda.synchronize()

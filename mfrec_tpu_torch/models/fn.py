@@ -31,8 +31,7 @@ import torch
 
 from mfrec_tpu_torch.engine.trainer import ConvergenceDriver
 from mfrec_tpu_torch.models.base import DefaultRate, Error
-from mfrec_tpu_torch.models.gd import _host, _inv_sqrt_counts
-from mfrec_tpu_torch.models.mf import MFRecommender
+from mfrec_tpu_torch.models.mf import MFRecommender, _host, _pad_rows
 from mfrec_tpu_torch.ops import fn as fn_ops
 from mfrec_tpu_torch.ops import sgd_mf
 
@@ -136,10 +135,7 @@ class FNRecommender(MFRecommender):
                 feature_init=self.feature_init,
                 seed=int(self.rng.integers(2 ** 31)),
                 mu=self.overall_bias or 0.0, device=self.device)
-
-        def t(a):
-            return torch.from_numpy(np.array(a, np.float32)).to(self.device)
-
+        t = self._to_device
         return fn_ops.FNState(
             Q=t(self.Q), X=t(self.X), Y=t(self.Y), bu=t(self.users_bias),
             bi=t(self.items_bias),
@@ -171,19 +167,15 @@ class FNRecommender(MFRecommender):
         k = self.dimensionality
         p_layout, q_layout, W_user, W_item = self._alternating_layouts(512)
         lr, lr_bu, lr_bi = self._fn_lrs(0.15)   # row-mean window steps
-        pad = torch.nn.functional.pad
-        Paug, Qaug = sgd_mf.augment_factors(
-            torch.zeros((self.nbr_users + W_user, k), device=self.device),
-            pad(st.Q, (0, 0, 0, W_item)), pad(st.bu, (0, W_user)),
-            pad(st.bi, (0, W_item)))
-        state = (Paug, Qaug, pad(st.X, (0, 0, 0, W_item)),
-                 pad(st.Y, (0, 0, 0, W_item)))
-        nrm_rows = torch.from_numpy(
-            _inv_sqrt_counts(self.ratings.user_counts(),
-                             self.nbr_users + W_user)).to(self.device)
+        Paug, Qaug = self._augmented(
+            torch.zeros((self.nbr_users, k), device=self.device), st.Q,
+            st.bu, st.bi, W_user, W_item)
+        state = (Paug, Qaug, _pad_rows(st.X, W_item),
+                 _pad_rows(st.Y, W_item))
+        nrm_rows = self._user_norms(W_user)
         mu = torch.tensor(np.float32(self.overall_bias or 0.0))
         if use_kernel is None:
-            use_kernel = self.device.type == 'cuda'
+            use_kernel = self._on_card
         epoch = fn_ops.make_fn_alternating_epoch(
             W_user, W_item, lr, lr_bu, lr_bi, lr, K=self.K_items,
             K_bu=self.K_bias, K_bi=self.K_bias, K_x=self.K_items,
@@ -225,24 +217,15 @@ class FNRecommender(MFRecommender):
         device.'''
         self.compute_overall_avg()
         k = self.dimensionality
-        epoch, state, (mu, p_layout, q_layout, nrm_rows) = self._fn_epoch(
+        epoch, state, args = self._fn_epoch(
             self._init_or_resume(initialize_model))
-        driver = ConvergenceDriver(1, self.nbr_epochs, self.min_improvement)
-
-        def one_epoch(s):
-            Pa, Qa, Xp, Yp, rmse = epoch(*s, mu, p_layout, q_layout,
-                                         nrm_rows)
-            return (Pa, Qa, Xp, Yp), rmse
-
-        Paug, Qaug, Xpad, Ypad = driver.run(one_epoch, state)
-        self.rmse_history = driver.history
-        if verbose:
-            for e, r in enumerate(driver.history):
-                self.logger.info('epoch %d rmse %.5f', e, r)
+        Paug, Qaug, Xpad, Ypad = self._alternating_epochs(
+            ConvergenceDriver(1, self.nbr_epochs, self.min_improvement),
+            epoch, state, args, verbose=verbose)
         self._materialize(fn_ops.FNState(
             Q=Qaug[:self.nbr_items, :k], X=Xpad[:self.nbr_items],
             Y=Ypad[:self.nbr_items], bu=Paug[:self.nbr_users, k],
-            bi=Qaug[:self.nbr_items, k + 1], mu=mu))
+            bi=Qaug[:self.nbr_items, k + 1], mu=args[0]))
 
     def get_rmse_history(self):
         return np.asarray(self.rmse_history)

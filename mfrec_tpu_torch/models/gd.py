@@ -53,7 +53,7 @@ import torch
 
 from mfrec_tpu_torch.engine.trainer import ConvergenceDriver
 from mfrec_tpu_torch.models.base import DefaultRate, Error
-from mfrec_tpu_torch.models.mf import MFRecommender
+from mfrec_tpu_torch.models.mf import MFRecommender, _host, _pad_rows
 from mfrec_tpu_torch.ops import serial_kernel, sgd_mf
 from mfrec_tpu_torch.ops import similarity as sim_ops
 from mfrec_tpu_torch.utils import profiling
@@ -65,20 +65,6 @@ _UNPORTED_ENGINES = {
     'alternating_sharded': 'queue 1 item 9 (multi-device engines)',
     'alternating_ring': 'queue 1 item 9 (multi-device engines)',
 }
-
-
-def _host(t, n):
-    '''The first ``n`` rows of a device tensor as a writable numpy array.'''
-    return np.array(t[:n].cpu().numpy())
-
-
-def _inv_sqrt_counts(counts, rows):
-    '''``|N(u)|^-1/2`` per user (0 for none), zero-padded to ``rows``.'''
-    counts = np.asarray(counts, np.float32)
-    nrm = np.zeros(rows, np.float32)
-    nrm[:counts.shape[0]] = np.where(
-        counts > 0, 1.0 / np.sqrt(np.maximum(counts, 1.0)), 0.0)
-    return nrm
 
 
 class GDRecommender(MFRecommender):
@@ -232,8 +218,7 @@ class GDRecommender(MFRecommender):
         users, items = rows if rows is not None else (slice(None),) * 2
 
         def t(a, ids):
-            return torch.from_numpy(np.array(np.asarray(a)[ids],
-                                             np.float32)).to(self.device)
+            return self._to_device(np.asarray(a)[ids])
 
         return sgd_mf.MFState(
             P=t(self.P, users), Q=t(self.Q, items), bu=t(bu, users),
@@ -381,40 +366,22 @@ class GDRecommender(MFRecommender):
         self.users_bias = _host(bu, self.nbr_users)
         self.items_bias = _host(bi, self.nbr_items)
 
-    def _alt_lrs(self):
-        '''Learning rates for the alternating (row-mean step) engine.
-        When the user has not set a rate (it is still the DefaultRate
-        sentinel), use the row-mean default 0.15: one averaged step per
-        row and batch barely moves at the per-sample default 0.001.  An
-        explicit value always wins.'''
-        def chosen(attr):
-            return not isinstance(getattr(self, attr), DefaultRate)
-
-        if chosen('learning_rate'):
-            lr = float(self.learning_rate)
-        else:
-            lr = 0.15
-            self.logger.info(
-                'alternating engine: learning_rate not set; using the '
-                'row-mean default 0.15 (assign learning_rate explicitly to '
-                'override)')
-        lr_bu = float(self.learning_rate_users) \
-            if chosen('learning_rate_users') else lr
-        lr_bi = float(self.learning_rate_items) \
-            if chosen('learning_rate_items') else lr
-        return lr, lr_bu, lr_bi
-
     # ------------------------------------------------- alternating engine
-    def _sgd_window(self):
-        '''The alternating SGD engine's layout window W.'''
-        return min(128, max(self.nbr_users, self.nbr_items))
+    def _sgd_driver(self):
+        '''``(driver, lr_decay)`` of the alternating and SVD++ tiers: the
+        convergence driver with ``lr_plateau_decay``, and the per-epoch
+        decay.'''
+        decay, plateau = self._lr_schedule()
+        return ConvergenceDriver(self.min_epochs, self.max_epochs,
+                                 self.min_improvement,
+                                 plateau_decay=plateau), decay
 
     def _run_alternating(self, bias_mode, verbose=False):
         '''Sorted-window alternating epochs
         (``ops.sgd_mf.make_alternating_epoch``) under the convergence
         driver, with ``lr_decay`` and ``lr_plateau_decay``.'''
         lr, lr_bu, lr_bi = self._alt_lrs()
-        decay, plateau = self._lr_schedule()
+        driver, decay = self._sgd_driver()
         # kept on the store: the call's fetch (``_call_layouts``) built them
         p_layout, q_layout, W_user, W_item = \
             self._alternating_layouts(self._sgd_window())
@@ -422,50 +389,20 @@ class GDRecommender(MFRecommender):
             state = self._state(with_bias=(bias_mode != 'none'))
             profiling.count('h2d_bytes', sum(
                 t.nbytes for t in (state.P, state.Q, state.bu, state.bi)))
-            pad = torch.nn.functional.pad
-            # W spare rows past each side's end: a window never runs off it
-            Paug, Qaug = sgd_mf.augment_factors(
-                pad(state.P, (0, 0, 0, W_user)),
-                pad(state.Q, (0, 0, 0, W_item)),
-                pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
-        mu = state.mu
+            Paug, Qaug = self._augmented(state.P, state.Q, state.bu,
+                                         state.bi, W_user, W_item)
         epoch = sgd_mf.make_alternating_epoch(
             W_user, W_item, lr, self.K, lr_bu=lr_bu, lr_bi=lr_bi,
             K_bu=self.K2, K_bi=self.K3, bias_mode=bias_mode,
             lo_r=self.min_rating, hi_r=self.max_rating,
-            inner_steps=self.inner_steps,
-            use_kernel=self.device.type == 'cuda', ff_dtype='bfloat16')
-        driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
-                                   self.min_improvement,
-                                   plateau_decay=plateau)
-
-        def one_epoch(pq):
-            Pa, Qa = pq
-            s = driver.lr_scale
-            if decay == 1.0 and s == 1.0:
-                Pa, Qa, rmse = epoch(Pa, Qa, mu, p_layout, q_layout)
-            else:
-                e = len(driver.history)
-                Pa, Qa, rmse = epoch(Pa, Qa, mu, p_layout, q_layout,
-                                     np.float32(s * decay ** e))
-            return (Pa, Qa), rmse
-
+            inner_steps=self.inner_steps, use_kernel=self._on_card,
+            ff_dtype='bfloat16')
         with profiling.span('gd.epochs'):
-            Paug, Qaug = driver.run(one_epoch, (Paug, Qaug))
-        if plateau < 1.0 and driver.lr_scale < 1.0:
-            self.logger.info('plateau decay engaged: final lr scale %g',
-                             driver.lr_scale)
-        self.rmse_history = driver.history
+            Paug, Qaug = self._alternating_epochs(
+                driver, epoch, (Paug, Qaug), (state.mu, p_layout, q_layout),
+                decay, verbose)
         with profiling.span('gd.writeback'):
-            P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
-            self.P = _host(P, self.nbr_users)
-            self.Q = _host(Q, self.nbr_items)
-            if bias_mode == 'learned':
-                self.users_bias = _host(bu, self.nbr_users)
-                self.items_bias = _host(bi, self.nbr_items)
-        if verbose:
-            for e, r in enumerate(driver.history):
-                self.logger.info('epoch %d rmse %.5f', e, r)
+            self._from_augmented(Paug, Qaug, bias_mode == 'learned')
 
     # -------------------------------------------------------- funk engine
     def _run_funk(self, bias_mode, verbose=False, update_users=True,
@@ -486,7 +423,7 @@ class GDRecommender(MFRecommender):
         items, iidx = np.unique(np.asarray(iidx), return_inverse=True)
         plan = (serial_kernel.serial_plan(uidx, iidx, bias_mode == 'learned',
                                           self.device)
-                if self.device.type == 'cuda' and len(vals) else None)
+                if self._on_card and len(vals) else None)
 
         def t(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -573,18 +510,6 @@ class GDRecommender(MFRecommender):
             else:
                 self.compute_items_bias_bk()
                 self.compute_users_bias_bk()
-
-    def _lr_schedule(self):
-        '''(lr_decay, lr_plateau_decay), each checked to lie in (0, 1].'''
-        decay = float(self.lr_decay)
-        if not (0.0 < decay <= 1.0):
-            raise Error('lr_decay must be in (0, 1] (got %r)'
-                        % self.lr_decay)
-        plateau = float(self.lr_plateau_decay)
-        if not (0.0 < plateau <= 1.0):
-            raise Error('lr_plateau_decay must be in (0, 1] (got %r)'
-                        % self.lr_plateau_decay)
-        return decay, plateau
 
     def _checked_engine(self):
         '''``self.engine`` resolved (``'auto'`` = ``'alternating'``), with
@@ -685,22 +610,16 @@ class GDRecommender(MFRecommender):
         p_layout, q_layout, W_user, W_item = self._alternating_layouts(512)
         with profiling.span('svdpp.upload'):
             state = self._state(with_bias=True)
-            Y = torch.from_numpy(np.array(self.Y, np.float32)).to(
-                self.device)
-            nrm_rows = torch.from_numpy(_inv_sqrt_counts(
-                self.ratings.user_counts(), self.nbr_users + W_user)).to(
-                    self.device)
+            Y = self._to_device(self.Y)
+            nrm_rows = self._user_norms(W_user)
             profiling.count('h2d_bytes', sum(
                 t.nbytes for t in (state.P, state.Q, state.bu, state.bi, Y,
                                    nrm_rows)))
-            pad = torch.nn.functional.pad
-            Paug, Qaug = sgd_mf.augment_factors(
-                pad(state.P, (0, 0, 0, W_user)),
-                pad(state.Q, (0, 0, 0, W_item)),
-                pad(state.bu, (0, W_user)), pad(state.bi, (0, W_item)))
-            Ypad = pad(Y, (0, 0, 0, W_item))
+            Paug, Qaug = self._augmented(state.P, state.Q, state.bu,
+                                         state.bi, W_user, W_item)
+            Ypad = _pad_rows(Y, W_item)
         if use_kernel is None:
-            use_kernel = self.device.type == 'cuda'
+            use_kernel = self._on_card
         epoch = sgd_mf.make_alternating_implicit_epoch(
             W_user, W_item, lr, lr, self.K, self.K, lo_r=self.min_rating,
             hi_r=self.max_rating, inner_steps=self.inner_steps_implicit,
@@ -713,40 +632,14 @@ class GDRecommender(MFRecommender):
         and ``lr_plateau_decay`` scaling the half-passes and the Y step
         together; P, Q and Y come back as numpy.  Spans ``svdpp.epochs``
         and ``svdpp.writeback``.'''
-        decay, plateau = self._lr_schedule()
-        epoch, state, (mu, p_layout, q_layout, nrm_rows) = \
-            self._implicit_epoch()
-        driver = ConvergenceDriver(self.min_epochs, self.max_epochs,
-                                   self.min_improvement,
-                                   plateau_decay=plateau)
-
-        def one_epoch(st):
-            Pa, Qa, Yp = st
-            s = driver.lr_scale
-            if decay == 1.0 and s == 1.0:
-                Pa, Qa, Yp, rmse = epoch(Pa, Qa, Yp, mu, p_layout, q_layout,
-                                         nrm_rows)
-            else:
-                # the schedule scales the half-passes and the Y step
-                e = len(driver.history)
-                Pa, Qa, Yp, rmse = epoch(Pa, Qa, Yp, mu, p_layout, q_layout,
-                                         nrm_rows, np.float32(s * decay ** e))
-            return (Pa, Qa, Yp), rmse
-
+        driver, decay = self._sgd_driver()
+        epoch, state, args = self._implicit_epoch()
         with profiling.span('svdpp.epochs'):
-            Paug, Qaug, Ypad = driver.run(one_epoch, state)
-        if plateau < 1.0 and driver.lr_scale < 1.0:
-            self.logger.info('plateau decay engaged: final lr scale %g',
-                             driver.lr_scale)
-        self.rmse_history = driver.history
+            Paug, Qaug, Ypad = self._alternating_epochs(
+                driver, epoch, state, args, decay, verbose)
         with profiling.span('svdpp.writeback'):
-            P, Q, _, _ = sgd_mf.split_factors(Paug, Qaug)
-            self.P = _host(P, self.nbr_users)
-            self.Q = _host(Q, self.nbr_items)
+            self._from_augmented(Paug, Qaug, biases=False)
             self.Y = _host(Ypad, self.nbr_items)
-        if verbose:
-            for e, r in enumerate(driver.history):
-                self.logger.info('epoch %d rmse %.5f', e, r)
 
     def feature_training2(self, initialize_model=True, verbose=False):
         '''Caller-controlled funk subloops (reference

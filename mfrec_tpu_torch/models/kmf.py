@@ -35,8 +35,7 @@ import torch
 
 from mfrec_tpu_torch.engine.trainer import ConvergenceDriver
 from mfrec_tpu_torch.models.base import DefaultRate, Error
-from mfrec_tpu_torch.models.gd import _host
-from mfrec_tpu_torch.models.mf import MFRecommender
+from mfrec_tpu_torch.models.mf import MFRecommender, _host
 from mfrec_tpu_torch.ops import kmf as kmf_ops
 from mfrec_tpu_torch.ops import kmf_serial_kernel, sgd_mf
 from mfrec_tpu_torch.ops.serial_kernel import converge_continues
@@ -62,6 +61,9 @@ class KMFRecommender(MFRecommender):
                         'lr_plateau_decay': 'lr_plateau_decay'}
 
     _default_predictor_mode = 'logistic'
+    _ROW_MEAN_NOTE = ('alternating engine: learning_rate not set; using the '
+                      'row-mean default 0.15 (assign learning_rate to '
+                      'override)')
 
     KERNELS = ('train_logistic_kernel', 'train_linear_kernel')
 
@@ -176,7 +178,7 @@ class KMFRecommender(MFRecommender):
             kernel=link, lr=float(self.learning_rate), K_users=self.K_users,
             K_items=self.K_items, K_bias=self.K_bias, lo=self.min_rating,
             hi=self.max_rating)
-        ub, ib, rb, mb = (self._put(a) for a in (ub, ib, rb, mb))
+        ub, ib, rb, mb = (self._to_device(a, None) for a in (ub, ib, rb, mb))
         driver, _ = self._kmf_driver(allow_schedules=False)
 
         def one_epoch(st):
@@ -186,7 +188,7 @@ class KMFRecommender(MFRecommender):
                                  len(driver.history) + 1, float(rmse))
             return tuple(st), rmse
 
-        st = driver.run(one_epoch, tuple(self._put(a, np.float32) for a in (
+        st = driver.run(one_epoch, tuple(self._to_device(a) for a in (
             self.P, self.Q, self.users_bias, self.items_bias)))
         self.rmse_history = driver.history
         self.P, self.Q = _host(st[0], self.nbr_users), _host(st[1],
@@ -194,24 +196,13 @@ class KMFRecommender(MFRecommender):
         self.users_bias = _host(st[2], self.nbr_users)
         self.items_bias = _host(st[3], self.nbr_items)
 
-    def _put(self, a, dtype=None):
-        '''A numpy array as a fresh tensor on the model's device.'''
-        return torch.from_numpy(np.array(a, dtype)).to(self.device)
-
     def _kmf_driver(self, allow_schedules):
         '''The convergence driver of the KMF engines
         (``mfrec_tpu/models/kmf.py:200-232``): min_improvement None runs
         exactly nbr_epochs epochs, a float stops early on the improvement
         rule; a non-finite RMSE raises.  The schedules are wired on the
         alternating tier only; the other engines refuse them.'''
-        decay = float(self.lr_decay)
-        if not (0.0 < decay <= 1.0):
-            raise Error('lr_decay must be in (0, 1] (got %r)'
-                        % self.lr_decay)
-        plateau = float(self.lr_plateau_decay)
-        if not (0.0 < plateau <= 1.0):
-            raise Error('lr_plateau_decay must be in (0, 1] (got %r)'
-                        % self.lr_plateau_decay)
+        decay, plateau = self._lr_schedule()
         if not allow_schedules and (decay != 1.0 or plateau != 1.0):
             raise Error("lr_decay/lr_plateau_decay are only wired on "
                         "engine='alternating' (got engine=%r)"
@@ -228,15 +219,9 @@ class KMFRecommender(MFRecommender):
         return driver, decay
 
     def _alt_lr(self):
-        '''Row-mean learning rate for the alternating tier: the default
-        0.15 unless the user set learning_rate (a plain float replaced the
-        DefaultRate sentinel).'''
-        if not isinstance(self.learning_rate, DefaultRate):
-            return float(self.learning_rate)
-        self.logger.info(
-            'alternating engine: learning_rate not set; using the '
-            'row-mean default 0.15 (assign learning_rate to override)')
-        return 0.15
+        '''Row-mean learning rate for the alternating tier, also its bias
+        rate (``_alt_lrs``' first).'''
+        return self._alt_lrs()[0]
 
     def _train_alternating(self, link, verbose):
         '''Kernel MF on the sorted-window alternating tier
@@ -245,14 +230,11 @@ class KMFRecommender(MFRecommender):
         clamp, per-side factor regularization, the bias rates = lr, the
         fixed side in f32.'''
         lr = self._alt_lr()
-        mw = min(128, max(self.nbr_users, self.nbr_items))
-        p_layout, q_layout, W_user, W_item = self._alternating_layouts(mw)
-        pad = torch.nn.functional.pad
-        P, Q, bu, bi = (self._put(a, np.float32) for a in (
-            self.P, self.Q, self.users_bias, self.items_bias))
-        Paug, Qaug = sgd_mf.augment_factors(
-            pad(P, (0, 0, 0, W_user)), pad(Q, (0, 0, 0, W_item)),
-            pad(bu, (0, W_user)), pad(bi, (0, W_item)))
+        p_layout, q_layout, W_user, W_item = \
+            self._alternating_layouts(self._sgd_window())
+        Paug, Qaug = self._augmented(*(self._to_device(a) for a in (
+            self.P, self.Q, self.users_bias, self.items_bias)),
+            W_user, W_item)
         epoch = sgd_mf.make_alternating_epoch(
             W_user, W_item, lr, self.K_users,
             lr_bu=lr, lr_bi=lr, K_bu=self.K_bias, K_bi=self.K_bias,
@@ -260,35 +242,14 @@ class KMFRecommender(MFRecommender):
             lo_r=self.min_rating, hi_r=self.max_rating,
             inner_steps=self.inner_steps,
             link='logistic' if link == 'logistic' else 'identity',
-            K_u=self.K_users, K_i=self.K_items,
-            use_kernel=self.device.type == 'cuda')
+            K_u=self.K_users, K_i=self.K_items, use_kernel=self._on_card)
         driver, decay = self._kmf_driver(allow_schedules=True)
         mu = torch.zeros((), dtype=torch.float32)   # no global-mean term
-
-        def one_epoch(pq):
-            Pa, Qa = pq
-            s = driver.lr_scale
-            if decay == 1.0 and s == 1.0:
-                Pa, Qa, rmse = epoch(Pa, Qa, mu, p_layout, q_layout)
-            else:
-                e = len(driver.history)
-                Pa, Qa, rmse = epoch(Pa, Qa, mu, p_layout, q_layout,
-                                     np.float32(s * decay ** e))
-            if verbose:
-                self.logger.info('EPOCHS: %d RMSE: %s',
-                                 len(driver.history) + 1, float(rmse))
-            return (Pa, Qa), rmse
-
-        Paug, Qaug = driver.run(one_epoch, (Paug, Qaug))
-        self.rmse_history = driver.history
-        if float(self.lr_plateau_decay) < 1.0 and driver.lr_scale < 1.0:
-            self.logger.info('plateau decay engaged: final lr scale %g',
-                             driver.lr_scale)
-        P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
-        self.P = _host(P, self.nbr_users)
-        self.Q = _host(Q, self.nbr_items)
-        self.users_bias = _host(bu, self.nbr_users)
-        self.items_bias = _host(bi, self.nbr_items)
+        Paug, Qaug = self._alternating_epochs(
+            driver, epoch, (Paug, Qaug), (mu, p_layout, q_layout), decay,
+            log_epoch=(lambda n, rmse: self.logger.info(
+                'EPOCHS: %d RMSE: %s', n, float(rmse))) if verbose else None)
+        self._from_augmented(Paug, Qaug, biases=True)
 
     def _train_serial(self, link, verbose, update_users, update_items,
                       ratings):
@@ -316,15 +277,15 @@ class KMFRecommender(MFRecommender):
             return
         users, uidx = np.unique(np.asarray(uidx), return_inverse=True)
         items, iidx = np.unique(np.asarray(iidx), return_inverse=True)
-        P, Q, bu, bi = (self._put(np.asarray(a)[ids], np.float32)
+        P, Q, bu, bi = (self._to_device(np.asarray(a)[ids])
                         for a, ids in ((self.P, users), (self.Q, items),
                                        (self.users_bias, users),
                                        (self.items_bias, items)))
         plan = kmf_serial_kernel.kmf_plan(uidx, iidx, vals, self.device) \
-            if self.device.type == 'cuda' else None
+            if self._on_card else None
         history = kmf_serial_kernel.kmf_serial_converge(
-            P, Q, bu, bi, self._put(uidx, np.int32),
-            self._put(iidx, np.int32), self._put(vals, np.float32),
+            P, Q, bu, bi, self._to_device(uidx, np.int32),
+            self._to_device(iidx, np.int32), self._to_device(vals),
             float(self.learning_rate), self.K_users, self.K_items,
             self.K_bias, kernel=link, lo=self.min_rating, hi=self.max_rating,
             update_users=update_users, update_items=update_items,

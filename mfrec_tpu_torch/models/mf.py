@@ -18,14 +18,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.models.base import BaseRecommender, Error
+from mfrec_tpu_torch.models.base import BaseRecommender, DefaultRate, Error
+from mfrec_tpu_torch.ops import sgd_mf
 from mfrec_tpu_torch.ops import topk as topk_ops
 from mfrec_tpu_torch.ops import topn_kernel
 from mfrec_tpu_torch.utils import math_, profiling
 
 
+def _host(t, n):
+    '''The first ``n`` rows of a device tensor as a writable numpy array.'''
+    return np.array(t[:n].cpu().numpy())
+
+
+def _pad_rows(t, n):
+    '''``t`` with ``n`` zero rows appended: the spare rows past a side's
+    end that the alternating engine's windows never run off.'''
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, n))
+
+
 class MFRecommender(BaseRecommender):
     '''Base class for the matrix factorization based recommenders.'''
+
+    # logged when an alternating tier substitutes the row-mean rate
+    _ROW_MEAN_NOTE = ('alternating engine: learning_rate not set; using the '
+                      'row-mean default 0.15 (assign learning_rate explicitly '
+                      'to override)')
 
     # predictor name -> retrieval score mode
     _PREDICTOR_MODES = {
@@ -42,6 +59,18 @@ class MFRecommender(BaseRecommender):
         self.neighborhood = 500
 
     # ------------------------------------------------------------- helpers
+    @property
+    def _on_card(self):
+        '''Whether the model runs the hand-written kernels: a CUDA model
+        always does, a CPU model runs their plain versions.'''
+        return self.device.type == 'cuda'
+
+    def _to_device(self, a, dtype=np.float32):
+        '''A copy of numpy ``a`` (as ``dtype``; None keeps its own) as a
+        tensor on the model's device: the epochs update it in place.'''
+        return torch.from_numpy(np.array(a, dtype)).to(self.device)
+
+    # ----------------------------------------------- the alternating tiers
     def _alternating_layouts(self, max_window, reused_counter=None):
         '''The sorted-pass layouts of the alternating engine on the
         model's device (``ops.sgd_mf.PassLayout``; with K1's segment
@@ -49,15 +78,12 @@ class MFRecommender(BaseRecommender):
         (``_store_cached``, + batch/window).  ``reused_counter``: a
         ``utils.profiling`` counter that counts one when they were
         kept.'''
-        from mfrec_tpu_torch.ops import sgd_mf
-
         def build():
             uidx, iidx, vals = self.ratings.coo()
-            on_card = self.device.type == 'cuda'
             pl_, ql_ = (sgd_mf.PassLayout(
                 sgd_mf.sorted_pass_layout(uidx, iidx, vals, self.batch_size,
                                           axis=axis, max_window=max_window),
-                axis, self.device, segments=on_card)
+                axis, self.device, segments=self._on_card)
                 for axis in ('user', 'item'))
             return (pl_, ql_, pl_.W, ql_.W)
         layouts, reused = self._store_cached('_alt_layout_cache', build,
@@ -65,6 +91,96 @@ class MFRecommender(BaseRecommender):
         if reused and reused_counter:
             profiling.count(reused_counter, 1)
         return layouts
+
+    def _sgd_window(self):
+        '''The layout window W of the SGD and KMF alternating tiers.'''
+        return min(128, max(self.nbr_users, self.nbr_items))
+
+    def _alt_lrs(self):
+        '''Learning rates for the alternating (row-mean step) engine.
+        When the user has not set a rate (it is still the DefaultRate
+        sentinel), use the row-mean default 0.15: one averaged step per
+        row and batch barely moves at the per-sample default.  An
+        explicit value always wins; an unset bias rate follows the
+        factor rate.'''
+        def chosen(attr):
+            return not isinstance(getattr(self, attr), DefaultRate)
+
+        if chosen('learning_rate'):
+            lr = float(self.learning_rate)
+        else:
+            lr = 0.15
+            self.logger.info(self._ROW_MEAN_NOTE)
+        lr_bu = float(self.learning_rate_users) \
+            if chosen('learning_rate_users') else lr
+        lr_bi = float(self.learning_rate_items) \
+            if chosen('learning_rate_items') else lr
+        return lr, lr_bu, lr_bi
+
+    def _lr_schedule(self):
+        '''(lr_decay, lr_plateau_decay), each checked to lie in (0, 1].'''
+        decay = float(self.lr_decay)
+        if not (0.0 < decay <= 1.0):
+            raise Error('lr_decay must be in (0, 1] (got %r)'
+                        % self.lr_decay)
+        plateau = float(self.lr_plateau_decay)
+        if not (0.0 < plateau <= 1.0):
+            raise Error('lr_plateau_decay must be in (0, 1] (got %r)'
+                        % self.lr_plateau_decay)
+        return decay, plateau
+
+    def _user_norms(self, W_user):
+        '''``|N(u)|^-1/2`` per user (0 for none) and ``W_user`` zero rows
+        past the end, on the model's device.'''
+        counts = np.asarray(self.ratings.user_counts(), np.float32)
+        nrm = np.zeros(self.nbr_users + W_user, np.float32)
+        nrm[:counts.shape[0]] = np.where(
+            counts > 0, 1.0 / np.sqrt(np.maximum(counts, 1.0)), 0.0)
+        return torch.from_numpy(nrm).to(self.device)
+
+    @staticmethod
+    def _augmented(P, Q, bu, bi, W_user, W_item):
+        '''``sgd_mf.augment_factors`` of the device factors and biases,
+        each side with its window's spare rows.'''
+        return sgd_mf.augment_factors(
+            _pad_rows(P, W_user), _pad_rows(Q, W_item),
+            _pad_rows(bu, W_user), _pad_rows(bi, W_item))
+
+    def _alternating_epochs(self, driver, epoch, state, args, decay=1.0,
+                            verbose=False, log_epoch=None):
+        '''The alternating tiers' convergence loop: ``epoch(*state, *args,
+        scale) -> (*state, rmse)`` under ``driver``, epoch ``e`` at the f32
+        rate scale ``driver.lr_scale * decay ** e``, until the driver
+        stops.  ``log_epoch(n, rmse)``, if given, runs as epoch ``n``
+        (from 1) ends.  Sets ``rmse_history``, logs the final scale when
+        the plateau decay engaged and, if ``verbose``, each epoch's rmse;
+        returns the final state.'''
+        def step(st):
+            *st, rmse = epoch(*st, *args, np.float32(
+                driver.lr_scale * decay ** len(driver.history)))
+            if log_epoch is not None:
+                log_epoch(len(driver.history) + 1, rmse)
+            return st, rmse
+
+        state = driver.run(step, state)
+        self.rmse_history = driver.history
+        if driver.plateau_decay < 1.0 and driver.lr_scale < 1.0:
+            self.logger.info('plateau decay engaged: final lr scale %g',
+                             driver.lr_scale)
+        if verbose:
+            for e, r in enumerate(driver.history):
+                self.logger.info('epoch %d rmse %.5f', e, r)
+        return state
+
+    def _from_augmented(self, Paug, Qaug, biases):
+        '''The augmented factors' P and Q (and, if ``biases``, the learned
+        biases) back as the model's numpy arrays.'''
+        P, Q, bu, bi = sgd_mf.split_factors(Paug, Qaug)
+        self.P = _host(P, self.nbr_users)
+        self.Q = _host(Q, self.nbr_items)
+        if biases:
+            self.users_bias = _host(bu, self.nbr_users)
+            self.items_bias = _host(bi, self.nbr_items)
 
     def clamping(self, value, min=1.0, max=5.0):
         '''Clamp to [min, max] (``mfrec_tpu/models/mf.py:65-68``).'''
@@ -245,7 +361,7 @@ class MFRecommender(BaseRecommender):
                 user_index, nbr_recommendations, output_label, predictor)
         rated_idx, rated_mask = topk_ops.pad_rated_lists(self.ratings,
                                                          [user_index])
-        on_card = self.device.type == 'cuda'
+        on_card = self._on_card
         if on_card:
             bu, bi, mu, post = self._pallas_score_terms(mode)
         else:
@@ -389,7 +505,7 @@ class MFRecommender(BaseRecommender):
         else:
             rated_idx = np.zeros((len(users), 1), np.int32)
             rated_mask = np.zeros((len(users), 1), np.float32)
-        if use_pallas or self.device.type == 'cuda':
+        if use_pallas or self._on_card:
             bu_eff, bi_eff, mu_eff, post = self._pallas_score_terms(mode)
             Q, bi = device_q if device_q is not None else (self.Q, bi_eff)
             idx, scores = self._kernel_topn(

@@ -7,51 +7,9 @@ one shared no-op context, and ``count(name, n)`` returns at once.  After
 open on its thread when it began (its parent; None for a root), the id
 of its root span (so every span of one ``train()`` call shares it), the
 thread's native id and its start and end on ``time.perf_counter_ns()``;
-each count adds ``n`` to a named total.  ``collect()`` returns what was
-recorded and clears it.
-
-Spans of the training path (one tree a ``train()`` call):
-
-- ``GDRecommender.train`` on the alternating engine: root ``gd.train``;
-  children ``gd.init`` (factor init), ``gd.layouts`` (the sorted-pass
-  layouts, cached or built), ``gd.bias`` (the overall mean and the
-  BellKor biases: on a CUDA model from the layouts' segment tables on
-  the card), ``gd.upload`` (the state to the device, padded and
-  augmented), ``gd.epochs`` (the convergence driver's loop, with one
-  ``converge.sync`` an epoch around the wait for its rmse) and
-  ``gd.writeback`` (the factors back as numpy);
-- ``WRMFRecommender.train``: root ``wrmf.train``; children ``wrmf.init``,
-  ``wrmf.feedback`` (the overall mean), ``wrmf.buckets`` (both sides'
-  buckets on the device: kept from the last call on an unchanged store,
-  else ``padded_rows`` and their upload), ``als.upload`` (P and Q to the
-  device, the alive masks built there), ``als.epochs`` and
-  ``wrmf.writeback`` (the factors back as numpy);
-- ``GDRecommender.feature_training_implicit`` (SVD++): root
-  ``svdpp.train``; children ``svdpp.init`` (the factor draws),
-  ``svdpp.layouts`` (the W=512 layouts, cached or built),
-  ``svdpp.bias`` (the overall mean and the BellKor biases, on a CUDA
-  model on the card, as ``gd.bias``),
-  ``svdpp.feedback`` (the rated-feedback arrays and Y = 0),
-  ``svdpp.upload`` (P, Q, the biases, Y and the per-user |N(u)|^-1/2 to
-  the device),
-  ``svdpp.epochs`` (the driver's loop: a ``converge.sync`` an epoch, and
-  inside each epoch, around the launches and without a sync,
-  ``svdpp.aggregate`` twice (the Y sums and the error-weighted Q sums),
-  ``svdpp.half_passes`` and ``svdpp.y_step``) and ``svdpp.writeback``
-  (P, Q and Y back as numpy);
-- set-up: ``store.consolidate`` (the ratings store's sort of pending
-  writes) and ``kernel.build:<names>`` (only when ``nvcc`` compiles).
-
-Counters: ``h2d_bytes``, the bytes of the host arrays that ``gd.upload``,
-``svdpp.upload``, ``als.upload`` and, on a call that builds them,
-``wrmf.buckets`` hand to the model's device; ``als.layouts_reused``, one
-for each WRMF ``train()`` call that found its device buckets kept from an
-earlier call (none on a call that builds them); ``svdpp.layouts_reused``,
-one for each SVD++ call that found its W=512 layouts kept;
-``bias.device_refits``, one for each BellKor refit that ran on the card
-(``MFRecommender.compute_biases_bk_on_device``: a CUDA model's ``train(
-handle_bias=True)``, ``feature_training_bias()`` and
-``feature_training_implicit()`` on the alternating engine).
+each count adds ``n`` to a named total.  ``enabled()`` says whether
+recording is on; ``disable()`` stops it, and what was recorded stays
+until ``collect()`` returns it and clears it.
 
 The clock is the one ``torch.profiler``'s host events can be placed on
 (``time.perf_counter_ns``), so a profiled run can lay these spans beside

@@ -13,7 +13,14 @@ Numerics held to, by test:
 - ``GDRecommender(device='cpu')`` against the JAX model on the CPU (the
   XLA branch again): bit-identical init, RMSE history within 1e-5
   relative and factors within 1e-4 after several epochs;
-- the ML-100K-shape acceptance floors of test_acceptance_ml100k.py.'''
+- the ML-100K-shape acceptance floors of test_acceptance_ml100k.py.
+
+The benchmark's faults (``bench_torch/runners``' ``FAULTS``), planted by
+name on the port's methods, are held here to changing what the public
+calls train, so a renamed seam fails this suite, not the benchmark.'''
+import os
+import sys
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -25,7 +32,15 @@ from mfrec_tpu_torch import interop
 from mfrec_tpu_torch.data import ml100k_like
 from mfrec_tpu_torch.models.base import Error
 from mfrec_tpu_torch.models.gd import GDRecommender
+from mfrec_tpu_torch.models.wrmf import WRMFRecommender
 from mfrec_tpu_torch.ops import sgd_mf
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'bench_torch')
+if BENCH not in sys.path:
+    sys.path.append(BENCH)
+
+from runners import svdpp_calls, train_calls  # noqa: E402
 
 FACTOR_ATOL = 1e-4
 RMSE_RTOL = 1e-5
@@ -317,3 +332,58 @@ def test_model_matches_jax_at_default_sweeps():
         assert got.shape == want.shape and got.dtype == np.float32
         np.testing.assert_allclose(got, want, atol=bound, rtol=0,
                                    err_msg=name)
+
+
+def _faulted_call(entry):
+    """The public call of ``entry`` on a small CPU model from seeded P0 and
+    Q0: GD ``train(handle_bias=True)``, SVD++
+    ``feature_training_implicit()`` or WRMF ``train()``.  Returns P0, Q0
+    and the trained P, Q (and SVD++'s Y)."""
+    rng = np.random.default_rng(7)
+    U, I, N, k = 50, 30, 900, 4
+    flat = rng.choice(U * I, N, replace=False)
+    u, i = (flat // I).astype(np.int32), (flat % I).astype(np.int32)
+    v = np.clip(np.round(rng.normal(3.5, 1.0, N) * 2) / 2, 1,
+                5).astype(np.float32)
+    P0 = rng.normal(0, 0.1, (U, k)).astype(np.float32)
+    Q0 = rng.normal(0, 0.1, (I, k)).astype(np.float32)
+    if entry == 'wrmf':
+        m = WRMFRecommender(U, I, {'nbr_features': k, 'nbr_epochs': 2},
+                            device='cpu')
+    else:
+        m = GDRecommender(U, I, {'nbr_features': k, 'min_epochs': 2,
+                                 'max_epochs': 2, 'batch_size': 128,
+                                 'inner_steps': 2, 'inner_steps_implicit': 2,
+                                 'learning_rate': 0.1}, device='cpu')
+    m.set_ratings(u, i, v)
+    m.P, m.Q = P0.copy(), Q0.copy()
+    if entry == 'gd':
+        m.train(handle_bias=True, initialize_model=False)
+    elif entry == 'svdpp':
+        m.feature_training_implicit(initialize_model=False)
+    else:
+        m.train(initialize_model=False)
+    leaves = ('P', 'Q', 'Y') if entry == 'svdpp' else ('P', 'Q')
+    return P0, Q0, {n: np.array(getattr(m, n)) for n in leaves}
+
+
+@pytest.mark.parametrize('entry,fault', [
+    (e, f) for e, faults in (('gd', train_calls.FAULTS),
+                             ('wrmf', train_calls.FAULTS),
+                             ('svdpp', svdpp_calls.FAULTS)) for f in faults],
+    ids=lambda x: x if isinstance(x, str) else x.__name__)
+def test_benchmark_faults_bite(entry, fault, monkeypatch):
+    """Each fault the benchmark's ``correct`` check plants on a cell's
+    public call changes the state that call trains, and
+    ``unchanged_state`` leaves the starting factors (and SVD++'s Y at
+    zero) as they were: a fault whose seam was renamed or left the path
+    fails here."""
+    P0, Q0, sound = _faulted_call(entry)
+    fault(monkeypatch)
+    _, _, got = _faulted_call(entry)
+    assert any(not np.array_equal(got[n], sound[n]) for n in sound)
+    if fault.__name__ == 'unchanged_state':
+        np.testing.assert_array_equal(got['P'], P0)
+        np.testing.assert_array_equal(got['Q'], Q0)
+        if 'Y' in got:
+            assert not got['Y'].any()
