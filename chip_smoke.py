@@ -29,7 +29,10 @@ Phase 2  each kernel against its plain PyTorch version on the card:
          user who rated all but n - 1 items, n and k around the limits);
          K1 on real batches of the ML-10M-shape layouts (B=16384, W=128,
          k=66) in each path's build (SGD bf16 T=128, SVD++ and FN f32),
-         the most-rated item's whole chain (a cluster row), edge cases
+         the most-rated item's whole chain (a cluster row), SVD++'s
+         build at its width (k=102, f32, T=32: the first user batches
+         and the hot item's chain, whose cluster blocks stage part of
+         each slice and stream the rest), edge cases
          and a whole half-pass at a reduced size, then whole half-passes
          and the longest chain timed; K2's M-given entry on edge cases
          and at the largest user bucket's shape, and the fused K2 on
@@ -787,10 +790,11 @@ def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
 
 
 def k1_kernel_ms(F_upd, F_fix, layout, axis, iters=3, only_row=None, T=128,
-                 mu=3.5, device='cuda', **opts):
+                 mu=3.5, device='cuda', ff32=False, **opts):
     '''Device time of one K1 launch over a whole layout (or over
     ``only_row``'s ratings alone: that row's chain of segments), bf16
-    fixed rows; ``opts`` go to ``half_pass`` (the link).'''
+    fixed rows (f32 with ``ff32``); ``opts`` go to ``half_pass`` (the
+    link).'''
     import torch
     from mfrec_tpu_torch.ops import sgd_mf
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
@@ -805,10 +809,12 @@ def k1_kernel_ms(F_upd, F_fix, layout, axis, iters=3, only_row=None, T=128,
     lrv, regv = (torch.from_numpy(a).to(dev) for a in sgd_mf.column_rates(
         k - 2, axis == 'user', 0.15, 0.02, 0.02, 0.15, 0.15, 0.01, 0.01))
     F = torch.from_numpy(F_upd).to(dev)
-    Ffix = torch.from_numpy(F_fix).to(dev).to(torch.bfloat16)
+    Ffix = torch.from_numpy(F_fix).to(dev)
+    if not ff32:
+        Ffix = Ffix.to(torch.bfloat16)
     ms = timed_ms(lambda: half_pass(F, Ffix, pl.batches(), W, lrv, regv, mu,
                                     T, segments=pl.segments, **opts), iters)
-    bound, by = k1_bound(pl.segments, k, T)
+    bound, by = k1_bound(pl.segments, k, T, fix_bytes=4 if ff32 else 2)
     return ms, bound, by, pl.segments
 
 
@@ -887,6 +893,18 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
     recs.append(k1_case('logistic hot item %d chain (cluster)' % hot,
                         *side['item'], lay['item'], 'item', batches=hot_b,
                         **LOGISTIC, **kw))
+    # SVD++'s build at its width (f = 100: k = 102, f32 fixed, T = 32), as
+    # its cell runs it: the first user batches, and the hot item's chain,
+    # whose cluster blocks stage part of each slice and stream the rest
+    Pw, Qw = _aug_factors(U, I, 100, W, seed=4)
+    k102 = dict(K1_PATHS['svdpp'], device=device)
+    nb = min(16, lay['user'][0].shape[0])
+    recs.append(k1_case('svdpp k=102 first%d user (f32 fixed, T=%d)'
+                        % (nb, k102['T']), Pw, Qw, lay['user'], 'user',
+                        batches=range(nb), iters=5, plain_iters=2, **k102))
+    recs.append(k1_case('svdpp k=102 hot item %d chain (cluster, T=%d)'
+                        % (hot, k102['T']), Qw, Pw, lay['item'], 'item',
+                        batches=hot_b, **k102))
     pairs = [(a, _boundary_pair(lay[a])) for a in ('user', 'item')]
     axis, b = next((a, b) for a, b in pairs + [(None, None)]
                    if a is None or b is not None)
@@ -5157,20 +5175,29 @@ def ab_layouts(path):
 def ab_k1(lay, hot):
     '''K1 in this process's checkout: ``kernel_probe``'s hiT (us per
     batch and sweep), the ML-10M-shape user and item half-passes, the
-    most-rated item's chain and the first 16 user batches, and the item
-    half-pass and chain through the logistic link's build (ms, CUDA
-    events).'''
+    most-rated item's chain and the first 16 user batches, the item
+    half-pass and chain through the logistic link's build, and each
+    half-pass through the f32 builds at their models' widths and sweeps:
+    SVD++'s (identity, k=102, T=32) and KMF's (logistic, k=66, T=64) (ms,
+    CUDA events).'''
     from mfrec_tpu_torch.tools import kernel_probe as kp
     Paug, Qaug = _aug_factors(ML10M['U'], ML10M['I'], 64, 128, seed=1)
+    Pw, Qw = _aug_factors(ML10M['U'], ML10M['I'], 100, 128, seed=1)
     hit = kp.hit_mode(kp.probe_data('cuda'), reps=3, iters=3,
                       log=lambda x: None)
     out = {'hit_us': 1e6 * hit['marg_8_32']}
+    svdpp = dict(ff32=True, T=32)
+    kmf = dict(LOGISTIC, ff32=True, T=64)
     for name, F, G, axis, row, opts in (
             ('user_ms', Paug, Qaug, 'user', None, {}),
             ('item_ms', Qaug, Paug, 'item', None, {}),
             ('chain_ms', Qaug, Paug, 'item', hot, {}),
             ('item_ms_logistic', Qaug, Paug, 'item', None, LOGISTIC),
-            ('chain_ms_logistic', Qaug, Paug, 'item', hot, LOGISTIC)):
+            ('chain_ms_logistic', Qaug, Paug, 'item', hot, LOGISTIC),
+            ('user_ms_f32_k102', Pw, Qw, 'user', None, svdpp),
+            ('item_ms_f32_k102', Qw, Pw, 'item', None, svdpp),
+            ('user_ms_logistic_f32', Paug, Qaug, 'user', None, kmf),
+            ('item_ms_logistic_f32', Qaug, Paug, 'item', None, kmf)):
         out[name] = k1_kernel_ms(F, G, lay[axis], axis, iters=3,
                                  only_row=row, **opts)[0]
     out['first16_user_ms'] = k1_kernel_ms(

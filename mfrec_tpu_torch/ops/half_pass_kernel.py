@@ -27,7 +27,14 @@ builds (``csrc/half_pass{,_f32,_logistic,_logistic_f32}.cu`` over
 ``csrc/half_pass.cuh``), one library each.  Both paths update ``F_upd``
 in place (the JAX package donates it).  ``half_pass.launches`` counts
 the calls that launched the kernel: one per half-pass (a call with hot
-rows launches one grid of 8-warp blocks and one of clusters).
+rows launches one grid of 8-warp blocks and one of clusters).  Each
+block stages a segment's first entries in shared memory for its T
+sweeps, as many as the kernel's ``stage_capacity`` gives for k and the
+build (``stage_caps`` asks the library); ``stage_split`` counts, on the
+host, the entries read from there and those streamed from global
+memory, and a launching call adds them to the counters
+``k1.resident_entries`` and ``k1.streamed_entries``
+(``utils/profiling.py``, while recording).
 '''
 from __future__ import annotations
 
@@ -37,10 +44,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mfrec_tpu_torch.utils import profiling
+
 MAX_K = 256
 LINKS = ('identity', 'logistic')
-# rows with at least this many ratings run in blocks of 32 warps instead
-# of 8 (at k <= WIDE_MAX_K), on a second stream beside the others (P1)
+# P1's threshold (``half_pass_old_kernel``): its rows of at least this
+# many ratings run in blocks of 32 warps instead of 8, on a second stream
+# beside the others; K1 has no such blocks (its long rows are
+# ``CLUSTER_ROW``'s).  Both take their second stream at k <= WIDE_MAX_K
 WIDE_ROW = 4096
 WIDE_MAX_K = 160
 # K1 runs a row as a thread-block cluster (8 blocks, at k <= WIDE_MAX_K,
@@ -148,7 +159,9 @@ class Segments(NamedTuple):
     cluster rows (``CLUSTER_ROW``, ``CLUSTER_SEG``), longest first, then
     the other rows longest first, so that the first ``n_wide`` blocks are
     the rows of at least ``WIDE_ROW`` ratings; ``blk_len`` (numpy, on the
-    host) is each block's entry count.'''
+    host) is each block's entry count, ``seg_len`` each segment's and
+    ``seg_cluster`` whether it belongs to a cluster row; ``memo`` keeps
+    what ``stage_split`` computed from them.'''
     blk_row: torch.Tensor
     blk_seg0: torch.Tensor
     blk_seg1: torch.Tensor
@@ -165,6 +178,9 @@ class Segments(NamedTuple):
     ent_row: torch.Tensor
     blk_len: np.ndarray
     n_cluster: int
+    seg_len: np.ndarray
+    seg_cluster: np.ndarray
+    memo: dict
 
 
 def build_segments(fix, r, m, kl, lo, W, device):
@@ -207,6 +223,7 @@ def build_segments(fix, r, m, kl, lo, W, device):
     lpt = np.lexsort((-row_len, ~cluster))
 
     ent_fix = fix[b_idx, j_idx]
+    seg_cluster = np.repeat(cluster, row_nseg)
 
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
@@ -225,7 +242,67 @@ def build_segments(fix, r, m, kl, lo, W, device):
         max_fix=int(ent_fix.max()) if n else -1,
         n_wide=int((row_len >= WIDE_ROW).sum()),
         ent_row=t(rows, np.int32), blk_len=row_len[lpt].astype(np.int64),
-        n_cluster=int(cluster.sum()))
+        n_cluster=int(cluster.sum()), seg_len=np.diff(seg_ptr),
+        seg_cluster=seg_cluster, memo={})
+
+
+def stage_geometry(k, fix_bf16, wide=False, link='identity'):
+    '''How a K1 block of the build for ``link`` and ``fix_bf16`` stages a
+    segment at width ``k`` (``wide``: a cluster row's block), as the
+    kernel computes it (``half_pass_stage``, ``csrc/half_pass.cuh``):
+    (entries of a segment, or of its slice, kept in shared memory for the
+    T sweeps; the blocks a segment is split over; such blocks an SM).
+    Needs CUDA.'''
+    lib = _library(LIBRARIES[link, bool(fix_bf16)])
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = lib.half_pass_stage(int(k), int(bool(wide)),
+                             *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError('half_pass_stage failed: CUDA error %d (%s)'
+                           % (rc, lib.half_pass_error_string(rc).decode()))
+    return tuple(x.value for x in out)
+
+
+_STAGE_CAPS = {}
+
+
+def stage_caps(k, fix_bf16, link='identity'):
+    '''The arguments of ``stage_split`` for a launch at width ``k``:
+    (an 8-warp block's capacity, (a cluster block's capacity, the blocks
+    of a cluster) or None where cluster rows run as 8-warp blocks, k >
+    WIDE_MAX_K), from ``stage_geometry``, asked once a build and width.'''
+    key = (int(k), bool(fix_bf16), link)
+    if key not in _STAGE_CAPS:
+        cap = stage_geometry(k, fix_bf16, link=link)[0]
+        cluster = stage_geometry(k, fix_bf16, True, link)[:2] \
+            if k <= WIDE_MAX_K else None
+        _STAGE_CAPS[key] = (cap, cluster)
+    return _STAGE_CAPS[key]
+
+
+def stage_split(seg, cap, cluster=None):
+    '''(resident, streamed): how many of ``seg``'s entries K1 reads from
+    shared memory on every sweep and how many it reads from global memory,
+    where a block stages a segment's first ``cap`` entries and, with
+    ``cluster`` = (cap_c, slices), a cluster row's segment is cut into
+    ``slices`` slices of ceil(n / slices) entries, each staging its first
+    cap_c (``stage_caps`` gives both for a launch).  Computed on the host
+    once per table and capacities, and kept in ``seg.memo``.'''
+    key = ('stage_split', cap, cluster)
+    if key in seg.memo:
+        return seg.memo[key]
+    n = seg.seg_len
+    clu = seg.seg_cluster if cluster else np.zeros(n.shape, bool)
+    resident = int(np.minimum(n[~clu], cap).sum())
+    if cluster:
+        cap_c, slices = cluster
+        nc = n[clu]
+        piece = -(-nc // slices)
+        for rank in range(slices):
+            part = np.clip(nc - rank * piece, 0, piece)
+            resident += int(np.minimum(part, cap_c).sum())
+    seg.memo[key] = (resident, int(n.sum()) - resident)
+    return seg.memo[key]
 
 
 def _check_args(F_upd, F_fix, batches, W, lrv, regv, link, inner_steps):
@@ -307,7 +384,32 @@ def half_pass(F_upd, F_fix, batches, W, lrv, regv, mu, inner_steps=1,
         lib.half_pass_error_string, 'half_pass', tail,
         n_wide=None if segments is None else segments.n_cluster)
     half_pass.launches += launched
+    if launched and profiling.enabled():
+        resident, streamed = stage_split(segments, *stage_caps(
+            k, F_fix.dtype == torch.bfloat16, link))
+        profiling.count('k1.resident_entries', resident)
+        profiling.count('k1.streamed_entries', streamed)
     return sse
+
+
+def bf16_round_kernel(x):
+    '''K1's product rounding on the card (``bf16_round2`` in
+    ``csrc/half_pass.cuh``, one packed conversion for two values) over
+    ``x`` (contiguous CUDA f32): each value rounded to bf16 to nearest
+    even, returned as f32.  For its test against ``torch.bfloat16``.'''
+    if x.device.type != 'cuda' or x.dtype != torch.float32 or \
+            not x.is_contiguous():
+        raise ValueError('x must be a contiguous float32 CUDA tensor')
+    lib = _library()
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.half_pass_bf16_round(
+            x.data_ptr(), y.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('half_pass_bf16_round failed: CUDA error %d (%s)'
+                           % (rc, lib.half_pass_error_string(rc).decode()))
+    return y
 
 
 def run_segments(F_upd, F_fix, seg, launch, error_string, name, tail,
@@ -380,6 +482,10 @@ def _declare(lib):
     lib.half_pass_launch.argtypes = [p, p, i, p, p, p, i, i, i, p, p, p, p,
                                      p, p, p, f, f, f, f, f, i, i, i, p, p]
     lib.half_pass_launch.restype = i
+    lib.half_pass_bf16_round.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.half_pass_bf16_round.restype = i
+    lib.half_pass_stage.argtypes = [i, i, p, p, p]
+    lib.half_pass_stage.restype = i
 
 
 def _library(name='half_pass'):

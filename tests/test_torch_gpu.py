@@ -265,16 +265,67 @@ def _k1_batches(nb, B, W, n_upd, n_fix, seed):
     return fix, r, m, kl, lo
 
 
+def _stage_batches(kind, cap, n_fix, seed):
+    '''Batches whose segments sit around K1's staging capacity ``cap``
+    (window W = 8, rows 0..7 from lo = 0): ``'straddle'``, one batch with
+    segments of cap - 1, cap and cap + 1 entries beside short rows;
+    ``'mixed'``, three batches in which row 0's segments are cap - 5,
+    cap + 7 and 3 entries long, so that one row's segments take both
+    paths; ``'cluster'``, a row of CLUSTER_ROW ratings over three batches
+    (a cluster row, each block staging up to ``cap`` of its slice).'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    rng = np.random.default_rng(seed)
+    if kind == 'straddle':
+        lens = [[cap - 1, cap, cap + 1] + [20] * 5]
+    elif kind == 'mixed':
+        lens = [[cap - 5] + [30] * 7, [cap + 7] + [30] * 7, [3] + [30] * 7]
+    else:
+        third = hk.CLUSTER_ROW // 3
+        lens = [[third] + [40] * 7, [third] + [40] * 7,
+                [hk.CLUSTER_ROW - 2 * third] + [40] * 7]
+    B = max(sum(x) for x in lens) + 16
+    nb = len(lens)
+    kl = np.zeros((nb, B), np.int32)
+    m = np.zeros((nb, B), np.float32)
+    for b, row_lens in enumerate(lens):
+        ids = np.repeat(np.arange(8), row_lens)
+        kl[b, :ids.size] = ids
+        m[b, :ids.size] = 1.0
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, n_fix, (nb, B)).astype(np.int32)
+    return fix, r, m, kl, np.zeros(nb, np.int32)
+
+
 @pytest.mark.parametrize('k,opts', [
     (66, {}), (66, {'link': 'logistic', 'clamp_pred': False}),
     (66, {'bias_none': True}), (66, {'row_mean': False}),
-    (66, {'clamp_pred': False}), (130, {}), (10, {'f32_fix': True})])
+    (66, {'clamp_pred': False}), (130, {}), (10, {'f32_fix': True}),
+    (102, {}), (102, {'f32_fix': True}),
+    (66, {'f32_fix': True, 'link': 'logistic', 'clamp_pred': False}),
+    (66, {'stage': 'straddle'}), (102, {'stage': 'straddle', 'f32_fix': True}),
+    (130, {'stage': 'straddle'}), (66, {'stage': 'mixed'}),
+    (102, {'stage': 'mixed', 'f32_fix': True}),
+    (66, {'stage': 'mixed', 'link': 'logistic', 'clamp_pred': False}),
+    (66, {'stage': 'cluster'}), (102, {'stage': 'cluster', 'f32_fix': True})])
 def test_half_pass_kernel_matches_plain(cuda, k, opts):
+    '''K1 against its plain version, and a second launch from the same
+    factors bit-identical.  ``stage``: segments below, at and above the
+    staging capacity, a row whose segments take both paths, or a cluster
+    row (``_stage_batches``), at the capacity the kernel states
+    (``stage_geometry``); the split ``stage_split`` counts holds the
+    entries either side of it.'''
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     opts = dict(opts)
     f32_fix = opts.pop('f32_fix', False)
+    stage = opts.pop('stage', None)
     nb, B, W, n_upd, n_fix, T = 5, 2048, 64, 400, 300, 16
-    batches = _k1_batches(nb, B, W, n_upd, n_fix, seed=k)
+    link = opts.get('link', 'identity')
+    cap = hk.stage_geometry(k, not f32_fix, link=link)[0]
+    if stage is None:
+        batches = _k1_batches(nb, B, W, n_upd, n_fix, seed=k)
+    else:
+        W = 8
+        batches = _stage_batches(stage, cap, n_fix, seed=k)
     rng = np.random.default_rng(1)
     F0 = torch.from_numpy(
         rng.normal(0, 0.1, (n_upd, k)).astype(np.float32)).to(cuda)
@@ -287,19 +338,85 @@ def test_half_pass_kernel_matches_plain(cuda, k, opts):
     lrv[-1] = 0.0
     regv = torch.full((k,), 0.02, device=cuda)
     seg = hk.build_segments(*batches, W, cuda)
+    resident, streamed = hk.stage_split(
+        seg, *hk.stage_caps(k, not f32_fix, link))
+    assert resident + streamed == int(seg.ent_r.numel())
+    if stage == 'straddle':
+        assert streamed == 1
+    elif stage == 'mixed':
+        assert streamed == 7
+    elif stage == 'cluster':
+        assert seg.n_cluster == 1
     tb = tuple(torch.from_numpy(a).to(cuda) for a in batches)
     mu = 0.0 if opts.get('link') == 'logistic' else 3.4
-    Fk, Fp = F0.clone(), F0.clone()
+    Fk, Fp, Fa = F0.clone(), F0.clone(), F0.clone()
     before = hk.half_pass.launches
     sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
                          **opts)
     torch.cuda.synchronize()
     assert hk.half_pass.launches == before + 1
+    sse_a = hk.half_pass(Fa, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
     sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
     torch.testing.assert_close(Fk, Fp, **K1_TOL)
     assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert torch.equal(Fk, Fa) and float(sse_k) == float(sse_a)
     assert torch.equal(Fk[:, -1], F0[:, -1])            # frozen column
     assert float((Fk - F0).abs().max()) > 0
+
+
+@pytest.mark.parametrize('link', ['identity', 'logistic'])
+@pytest.mark.parametrize('fix_bf16', [True, False])
+@pytest.mark.parametrize('k', [6, 64, 66, 102, 128, 130, 160, 256])
+def test_half_pass_stage_fits_blocks_per_sm(cuda, k, fix_bf16, link):
+    '''K1's staging capacity and the occupancy it was sized for, as the
+    kernel computes them (``stage_geometry``): an 8-warp block holds its
+    staged entries four to an SM at up to four column slots (k <= 128),
+    at least two beyond; a cluster row's block (k <= WIDE_MAX_K) two to
+    an SM, over CLUSTER slices, staging more than an 8-warp block.  A
+    change to the kernel's shared-memory layout that costs a block an SM
+    fails here.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    cap, slices, blocks = hk.stage_geometry(k, fix_bf16, link=link)
+    assert slices == 1 and cap >= 32
+    if -(-k // 32) <= 4:
+        assert blocks == 4
+    else:
+        assert blocks >= 2
+    if k <= hk.WIDE_MAX_K:
+        cap_c, slices_c, blocks_c = hk.stage_geometry(k, fix_bf16, True,
+                                                      link)
+        assert (slices_c, blocks_c) == (8, 2) and cap_c > cap
+        assert hk.stage_caps(k, fix_bf16, link) == (cap, (cap_c, slices_c))
+    else:
+        assert hk.stage_caps(k, fix_bf16, link) == (cap, None)
+    if (k, fix_bf16) == (66, True):
+        assert (cap, cap_c) == (360, 726)
+    if (k, fix_bf16) == (102, False):
+        assert (cap, cap_c) == (117, 240)
+
+
+def test_half_pass_bf16_round_matches_torch(cuda):
+    '''K1's product rounding (``bf16_round2``: one packed conversion for
+    two values) against torch's bf16 conversion (round to nearest even)
+    on every finite f32 bit pattern, subnormals and the values that round
+    up to +-inf among them, 2^28 patterns at a time; bits compared.'''
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    step = 1 << 28
+    checked = 0
+    for start in range(0, 1 << 32, step):
+        bits = torch.arange(start, start + step, dtype=torch.int64,
+                            device=cuda)
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+            torch.int32)
+        x = bits.view(torch.float32)
+        del bits
+        finite = torch.isfinite(x)
+        got = hk.bf16_round_kernel(x).view(torch.int32)
+        want = x.to(torch.bfloat16).float().view(torch.int32)
+        assert torch.equal(got[finite], want[finite]), hex(start)
+        checked += int(finite.sum())
+    assert checked == (1 << 32) - (1 << 24)      # all but exponent 255
 
 
 def test_half_pass_kernel_long_rows(cuda):
@@ -969,14 +1086,14 @@ def test_cuda_old_epoch_matches_cpu(cuda):
 
 @pytest.mark.parametrize('path', ['sgd', 'svdpp', 'fn', 'logistic',
                                   'logistic_f32', 'bias_none'])
-@pytest.mark.parametrize('k', [6, 64, 66, 130, 256])
+@pytest.mark.parametrize('k', [6, 64, 66, 102, 130, 256])
 def test_half_pass_instantiations_match_plain(cuda, k, path):
     '''K1 against its plain version for every build and column shape a
     path of the port launches: SGD (bf16 fixed rows), SVD++ (f32), FN
     (f32, learned biases, user factors frozen), the logistic link on
-    either fixed side, bias_mode 'none'; k=6 is the packed tail slot
-    alone, 66 and 130 full slots plus a packed tail, 64 and 256 full
-    slots only.'''
+    either fixed side, bias_mode 'none'; k=6 one column slot, 66, 102
+    (SVD++'s width, f = 100) and 130 full slots plus the packed tail
+    columns, 64 and 256 full slots only.'''
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     from mfrec_tpu_torch.ops import sgd_mf
     nb, B, W, n_upd, n_fix, T = 3, 1024, 32, 200, 150, 8
@@ -998,15 +1115,18 @@ def test_half_pass_instantiations_match_plain(cuda, k, path):
     mu = 0.0 if path.startswith('logistic') else 3.4
     seg = hk.build_segments(*batches, W, cuda)
     tb = tuple(torch.from_numpy(a).to(cuda) for a in batches)
-    Fk, Fp = F0.clone(), F0.clone()
+    Fk, Fp, Fa = F0.clone(), F0.clone(), F0.clone()
     before = hk.half_pass.launches
     sse_k = hk.half_pass(Fk, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
                          **opts)
     torch.cuda.synchronize()
     assert hk.half_pass.launches == before + 1
+    sse_a = hk.half_pass(Fa, Ffix, tb, W, lrv, regv, mu, T, segments=seg,
+                         **opts)
     sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
     torch.testing.assert_close(Fk, Fp, **K1_TOL)
     assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
+    assert torch.equal(Fk, Fa) and float(sse_k) == float(sse_a)
     assert float((Fk - F0).abs().max()) > 0
     frozen = lrv == 0
     assert torch.equal(Fk[:, frozen], F0[:, frozen])

@@ -327,3 +327,58 @@ def test_block_lengths_and_cluster_rows_match_numpy(axis, small,
     assert seg.n_wide == int((counts >= hk.WIDE_ROW).sum())
     for thr in (1, 40, 80, 10 ** 9):
         assert int((seg.blk_len >= thr).sum()) == int((counts >= thr).sum())
+
+
+@pytest.mark.parametrize('cap,cluster', [
+    (40, None), (40, (25, 8)), (7, (3, 8)), (500, None), (500, (25, 4))])
+def test_stage_split_counts(cap, cluster, monkeypatch):
+    '''The host-side counts behind ``k1.resident_entries`` and
+    ``k1.streamed_entries`` on a hand-built table: they sum to the
+    masked-in entries and split each segment at the capacity given
+    (``stage_caps`` reads it from the kernel): an 8-warp block's ``cap``,
+    and with ``cluster`` = (cap_c, slices) a cluster row's segment in
+    ``slices`` slices of ceil(n / slices), each staging cap_c (without, a
+    cluster row counts as 8-warp blocks, as at k > WIDE_MAX_K); a brute
+    force count of every (row, batch) segment as the oracle; a second call
+    answers from the table's memo.'''
+    monkeypatch.setattr(hk, 'CLUSTER_ROW', 300)
+    monkeypatch.setattr(hk, 'CLUSTER_SEG', 100)
+    # row 0: 150, 330 and 2 entries over three batches (a cluster row at
+    # the lowered thresholds); row 1: 40, 41 and 39; rows 2-5 short
+    lens = [[150, 40, 5, 7, 0, 12], [330, 41, 0, 9, 3, 1],
+            [2, 39, 6, 0, 8, 40]]
+    B = 400
+    nb = len(lens)
+    kl = np.zeros((nb, B), np.int32)
+    m = np.zeros((nb, B), np.float32)
+    for b, row_lens in enumerate(lens):
+        ids = np.repeat(np.arange(6), row_lens)
+        kl[b, :ids.size] = ids
+        m[b, :ids.size] = 1.0
+    m[1, 5] = 0.0                                   # one masked-out entry
+    fix = np.arange(nb * B, dtype=np.int32).reshape(nb, B) % 50
+    seg = hk.build_segments(fix, np.ones((nb, B)), m, kl,
+                            np.zeros(nb, np.int32), 8, 'cpu')
+    assert seg.n_cluster == 1
+    resident = streamed = 0
+    for b in range(nb):
+        for row in range(6):
+            n = int(((kl[b] == row) & (m[b] != 0)).sum())
+            if cluster is None or row != 0:
+                parts, c = [n], cap
+            else:
+                c, slices = cluster
+                piece = -(-n // slices)
+                parts = [min(max(n - q * piece, 0), piece)
+                         for q in range(slices)]
+            for x in parts:
+                resident += min(x, c)
+                streamed += x - min(x, c)
+    got = hk.stage_split(seg, cap, cluster)
+    assert got == (resident, streamed)
+    assert sum(got) == int((m != 0).sum()) == int(seg.ent_r.numel())
+    # the longest segment has 330 entries
+    assert resident > 0
+    assert (streamed == 0) == (cluster is None and cap >= 330)
+    seg.memo[('stage_split', cap, cluster)] = (-1, -1)
+    assert hk.stage_split(seg, cap, cluster) == (-1, -1)
