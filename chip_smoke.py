@@ -1804,23 +1804,37 @@ def k4_gather_bound(seg, k, mode):
     bench = os.path.join(REPO, 'bench_torch')
     if bench not in sys.path:
         sys.path.insert(0, bench)
-    from lib import svdpp_bound
-    work = svdpp_bound.gather_agg_work if mode == 'gather' else \
-        svdpp_bound.error_agg_work
+    from lib import fn_bound, svdpp_bound
+    work = {'gather': svdpp_bound.gather_agg_work,
+            'error': svdpp_bound.error_agg_work,
+            'profile': fn_bound.profile_agg_work}[mode]
     return roofline_ms(*work(
         int(seg.ent_r.numel()), int(seg.blk_row.numel()),
         int(seg.seg_cnt.numel()), int(torch.unique(seg.ent_fix).numel()),
-        k if mode == 'gather' else k - 2))
+        k - 2 if mode == 'error' else k))
+
+
+def _profile_rows(seg, X, Y, bu, bi, mu):
+    '''The FN profile mode's rows ``res_e * X[fix_e] + Y[fix_e]``.'''
+    import torch
+    f = seg.ent_fix.long()
+    res = seg.ent_r - (torch.as_tensor(mu, dtype=torch.float32)
+                       + bu[seg.ent_row.long()] + bi[f])
+    return res[:, None] * X[f] + Y[f]
 
 
 def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
-                   plain_iters=0):
-    '''K4g -- ``gather_aggregate`` (``mode`` 'gather', SVD++'s Y sums) or
-    ``error_aggregate`` ('error', its error-weighted Q sums) -- over
+                   plain_iters=0, rounded=True):
+    '''K4g -- ``gather_aggregate`` (``mode`` 'gather', SVD++'s Y sums),
+    ``error_aggregate`` ('error', the error-weighted Q sums of SVD++ and
+    FN) or ``profile_aggregate`` ('profile', FN's profile sums) -- over
     segment table ``seg`` against its plain version, from a random
     target, random gathered rows ``[fix_rows, k]`` and, in the error
     mode, random effective rows, the target k - 2 wide and ratings
-    clamped to [1, 5].  The sum mode as ``scan_aggregate`` (``_k4_ok``);
+    clamped to [1, 5]; in the profile mode X the gathered rows, a random
+    Y and random biases, its rows rounded to bf16 or, with ``rounded``
+    False (the served profiles' instantiation), summed in full f32.  The sum and profile modes (whose rows kernel
+    and plain version make alike) as ``scan_aggregate`` (``_k4_ok``);
     the error mode within K4_ATOL/K4_RTOL plus AGG_FLIP of the largest
     term, under 1 % of the elements beyond K4's tolerance; a second
     launch bit-identical.  With ``iters`` the kernel's time (CUDA events
@@ -1835,6 +1849,14 @@ def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
         kt = k
         run, ref, args = wak.gather_aggregate, wak.gather_aggregate_ref, \
             (src, seg)
+    elif mode == 'profile':
+        kt = k
+        src = 0.05 * src
+        Y = 0.05 * torch.randn((fix_rows, k), generator=gen, device=dev)
+        bu = 0.3 * torch.randn(rows, generator=gen, device=dev)
+        bi = 0.3 * torch.randn(fix_rows, generator=gen, device=dev)
+        run, ref, args = (wak.profile_aggregate, wak.profile_aggregate_ref,
+                          (src, Y, bu, bi, seg, 3.6, rounded))
     else:
         kt = k - 2
         prow = 0.3 * torch.randn((rows, k), generator=gen, device=dev)
@@ -1848,9 +1870,12 @@ def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
     want = ref(t0.clone(), *args)
     same = bool(torch.equal(got, again))
     del again
-    if mode == 'gather':
-        exact = wak.scan_aggregate_ref(t0.double(), src[seg.ent_fix.long()],
-                                       seg)
+    if mode in ('gather', 'profile'):
+        rows_of = src[seg.ent_fix.long()] if mode == 'gather' else \
+            _profile_rows(seg, *args[:4], 3.6)
+        exact = wak.scan_aggregate_ref(t0.double(), rows_of, seg,
+                                       rounded=rounded)
+        del rows_of
         ok, err, k64, p64 = _k4_ok(got, want, exact)
         del exact
         extra = {'kernel_err_f64': k64, 'plain_err_f64': p64}
@@ -1877,7 +1902,8 @@ def k4_gather_case(name, seg, mode, k, rows, fix_rows, seed, iters=0,
         what = 'largest term %.3g, %.2g of the elements past K4\'s ' \
             'tolerance' % (tmax, share)
     ok = ok and same and float((want - t0).abs().max()) > 0
-    rec = {'case': name, 'mode': mode, 'k': k, 'entries':
+    rec = {'case': name, 'mode': mode, 'k': k, 'rounded': rounded,
+           'entries':
            int(seg.ent_r.numel()), 'rows': int(seg.blk_row.numel()),
            'longest_row': seg.longest, 'ok': ok, 'max_abs_err': err,
            **extra}
@@ -2164,7 +2190,18 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
                               seed=20 + j, iters=10, plain_iters=2)
                for j, (mode, k) in enumerate((('gather', 64), ('error', 66),
                                               ('gather', 100),
-                                              ('error', 102)))]
+                                              ('error', 102),
+                                              ('profile', 100)))]
+    # FN's other profile instantiations: the served profiles' unrounded
+    # sums (k 100 the Netflix cell's, timed) and phase 7's rank 64 (KJ=2),
+    # rounded and unrounded
+    gathers += [k4_gather_case('K4g profile%s: whole user layout (W=512, '
+                               'k=%d)' % ('' if r else ' unrounded', k),
+                               seg, 'profile', k, U + 512, I + 512,
+                               seed=25 + j, iters=10 if k == 100 else 0,
+                               plain_iters=2, rounded=r)
+                for j, (k, r) in enumerate(((100, False), (64, True),
+                                            (64, False)))]
     # and on a user of about the Netflix cap's 17,653 ratings over two
     # batches (K4g's 16-warp blocks, which no ML-10M user reaches), beside
     # users of one rating
@@ -2180,11 +2217,16 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
     seg = hk.build_segments(L[1], L[2], L[3], L[4], L[5], 512, dev)
     if int(seg.blk_len.max()) < wak.AGG_BLOCK_ROW:
         raise SystemExit('phase 2 (K4g): no row reaches the block path')
-    gathers += [k4_gather_case('K4g %s: a heavy user, 2 batches (k=%d)'
-                               % (mode, k), seg, mode, k, Uh + 512,
-                               Ih + 512, seed=30 + j)
-                for j, (mode, k) in enumerate((('gather', 100),
-                                               ('error', 102)))]
+    gathers += [k4_gather_case('K4g %s%s: a heavy user, 2 batches (k=%d)'
+                               % (mode, '' if r else ' unrounded', k), seg,
+                               mode, k, Uh + 512, Ih + 512, seed=30 + j,
+                               rounded=r)
+                for j, (mode, k, r) in enumerate((('gather', 100, True),
+                                                  ('error', 102, True),
+                                                  ('profile', 100, True),
+                                                  ('profile', 100, False),
+                                                  ('profile', 64, True),
+                                                  ('profile', 64, False)))]
     del seg
     # the SVD++ / FN item step over the W=512 item layout, one launch
     L = lay['item', 512]
@@ -2218,7 +2260,7 @@ def phase2_window_agg(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'],
                 '%.3f ms, bound %.4f ms (%s)  [%s]'
                 % (r['case'], r['ms'], r['plain_ms'], r['loop_ms'],
                    r['bound_ms'], r['bound_by'], card))
-    for r in gathers[:4]:
+    for r in (r for r in gathers if 'ms' in r):
         log('  time %-44s kernel %.4f ms (device %.4f ms), plain %.3f ms, '
             'bound %.4f ms (%s)  [%s]'
             % (r['case'], r['ms'], r.get('device_ms', -1.0), r['plain_ms'],
@@ -2730,11 +2772,15 @@ def phase5(U=ALS['U'], I=ALS['I'], N=ALS['N'], device='cuda',
 
 
 def k4g_launches():
-    '''K4g's launches: SVD++'s gathered phases (``gather_aggregate`` and
-    ``error_aggregate``).'''
+    '''K4g's launches: the gathered phases of SVD++ (``gather_aggregate``
+    and ``error_aggregate``) and FN (``profile_aggregate`` and
+    ``error_aggregate``; ``profile_aggregate`` also sums FN's served
+    profiles, once a call).'''
     from mfrec_tpu_torch.ops.window_agg_kernel import (error_aggregate,
-                                                       gather_aggregate)
-    return gather_aggregate.launches + error_aggregate.launches
+                                                       gather_aggregate,
+                                                       profile_aggregate)
+    return gather_aggregate.launches + error_aggregate.launches + \
+        profile_aggregate.launches
 
 
 def k4_launches():
@@ -2755,13 +2801,14 @@ def zero_launch_counts():
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (error_aggregate,
                                                        gather_aggregate,
+                                                       profile_aggregate,
                                                        scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
     for fn in (half_pass, topn_scores_kernel, scan_aggregate,
-               gather_aggregate, error_aggregate, window_aggregate,
-               step_aggregate, serial_converge, kmf_serial_converge,
-               bias_refit):
+               gather_aggregate, error_aggregate, profile_aggregate,
+               window_aggregate, step_aggregate, serial_converge,
+               kmf_serial_converge, bias_refit):
         fn.launches = 0
     serial_converge.epochs = kmf_serial_converge.epochs = 0
 
@@ -2913,8 +2960,8 @@ def tier_card_vs_cpu(kind, params, reduced=REDUCED):
         if kind == 'svdpp':
             epoch, state, args = m._implicit_epoch(use_kernel=True)
         else:
-            epoch, state, args = m._fn_epoch(m._init_or_resume(False),
-                                             use_kernel=True)
+            epoch, state, args = m._fn_epoch(
+                m._upload(m._init_or_resume(False)), use_kernel=True)
         before = (half_pass.launches, k4_launches())
         *state, rmse = epoch(*state, *args)
         out[d] = ([x.cpu() for x in state], float(rmse),
@@ -3033,10 +3080,12 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 def check_tier_run(name, res, device, q_batches, card, tier):
     '''The gates of phases 6 and 7: every epoch's train RMSE finite, the
     last below the bias-only floor, and (on the card) K1 and K4 launched
-    as the 21 timed epochs need: 2 K1 launches per epoch, and 3 of K4 --
-    2 whole-phase aggregations (K4g's gathered entries for ``tier``
-    'svdpp', ``scan_aggregate`` for 'fn') and one item step, no call per
-    item batch.'''
+    as the 21 timed epochs in 6 calls need: 2 K1 launches per epoch, and 3
+    of K4 -- 2 whole-phase aggregations through K4g's gathered entries
+    (``tier`` 'svdpp': the sum and error modes; 'fn': the profile and
+    error modes, and one profile launch a call for the served profiles)
+    and one item step, no ``scan_aggregate`` and no call per item
+    batch.'''
     hist = res['hist']
     log('  warm-up 1 epoch %.2f s (rmse %.4f); rmse per epoch (last 5-epoch '
         'run): %s' % (res['warmup_s'], res['warmup_rmse'],
@@ -3054,7 +3103,7 @@ def check_tier_run(name, res, device, q_batches, card, tier):
     if not res['rmse'][-1] < res['floor']:
         raise SystemExit('%s: final RMSE %.4f does not beat the bias-only '
                          'floor %.4f' % (name, res['rmse'][-1], res['floor']))
-    want = (42, 0, 42, 21, 0) if tier == 'svdpp' else (42, 42, 0, 21, 0)
+    want = (42, 0, 42, 21, 0) if tier == 'svdpp' else (42, 0, 48, 21, 0)
     got = (res['k1_launches'], res['k4_scan_launches'], res['k4g_launches'],
            res['k4_step_launches'], res['k4_call_launches'])
     if device == 'cuda' and got != want:
@@ -3097,7 +3146,7 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
                k4_launches=k4_launches(), floor=floor)
     q_batches = m._alternating_layouts(512)[1].nbr_batches
     check_tier_run('phase 7', res, device, q_batches, card, 'fn')
-    epoch, state, args = m._fn_epoch(m._init_or_resume(False))
+    epoch, state, args = m._fn_epoch(m._upload(m._init_or_resume(False)))
     res['split'] = tier_split(epoch, state, args, device)
     del epoch, state, args
     log_split(res['split'], card)
@@ -3632,7 +3681,7 @@ def k4_entry(k4, svdpp, fn):
     ystep, xystep = k4['recs'][2], k4['recs'][3]
     scan = k4['scans'][0]
     y, xy = k4['steps'][0], k4['steps'][1]
-    g64, e66, g100, e102 = k4['gathers'][:4]
+    g64, e66, g100, e102, p100 = k4['gathers'][:5]
     runs = [r for r in (svdpp, fn) if r]
 
     def split(r, name):
@@ -3697,6 +3746,9 @@ def k4_entry(k4, svdpp, fn):
         'bound_ms_error_k102': e102['bound_ms'],
         'largest_term_error': max(e66['largest_term'],
                                   e102['largest_term']),
+        'ms_profile_k100': p100['ms'], 'plain_ms_profile_k100':
+            p100['plain_ms'], 'device_ms_profile_k100': p100.get('device_ms'),
+        'bound_ms_profile_k100': p100['bound_ms'],
         'phase_ms_svdpp': [split(svdpp, p).get('device_ms') for p in
                            ('aggregate Y', 'aggregate errors')]}, {
         'name': 'step_aggregate (K4 item step, SVD++ Y / FN X and Y)',

@@ -55,20 +55,29 @@
 //   gathered by index inside the kernel (it stays in L2), never
 //   materialized per entry.
 //
-// gather_agg_launch -- the SVD++ user-side phases of a whole epoch in one
-//   call each, with the per-entry rows gathered inside the kernel (by the
-//   table's ent_fix, as step_agg_launch gathers G), never materialized:
+// gather_agg_launch -- the SVD++ and FN user-side phases of a whole epoch
+//   in one call each, with the per-entry rows gathered inside the kernel
+//   (by the table's ent_fix, as step_agg_launch gathers G), never
+//   materialized:
 //
-//     sum mode:   target[row] += agg_s( bf16( src[fix_e] ) )
-//     error mode: target[row] += agg_s( bf16( err_e * src[fix_e][:kt] ) ),
-//                 err_e = (r_e - clamp(mu + prow[row] . src[fix_e], lo, hi))
-//                         * m_e
+//     sum mode:     target[row] += agg_s( bf16( src[fix_e] ) )
+//     error mode:   target[row] += agg_s( bf16( err_e * src[fix_e][:kt] ) ),
+//                   err_e = (r_e - clamp(mu + prow[row] . src[fix_e], lo,
+//                           hi)) * m_e
+//     profile mode: target[row] += agg_s( bf16( res_e * src[fix_e]
+//                                               + src2[fix_e] ) ),
+//                   res_e = r_e - ((mu + bu[row]) + bi[fix_e])
 //
 //   agg_s the f32 sum over segment s, added into the row in batch order
-//   as scan_agg_launch adds it.  The sum mode is phase 1 (A = sum of the
-//   user's Y rows), the error mode phase 4 (G = the error-weighted Q
-//   rows, prow the effective user rows Peff, src the augmented Qaug of
-//   width k = kt + 2).  One template serves both: the error mode reads
+//   as scan_agg_launch adds it.  The sum mode is SVD++'s phase 1 (A = sum
+//   of the user's Y rows), the error mode phase 4 of SVD++ and FN (G =
+//   the error-weighted Q rows, prow the effective user rows, src the
+//   augmented Qaug of width k = kt + 2), the profile mode FN's phase 1
+//   (A = sum of the user's residual-weighted X rows plus Y rows, src X,
+//   src2 Y; each product rounded, then the sum, as torch computes
+//   them: no contraction into an FMA).  The profile mode without its
+//   bf16 rounding (a compile-time switch) is FN's served profiles, summed
+//   in full f32.  One template serves all three: the error mode reads
 //   the block's prow row once into registers, and each entry's dot is
 //   each lane's fmaf over its columns, then a xor-butterfly over the warp
 //   (every lane ends with the same sum, so no broadcast).  A warp has UU
@@ -103,7 +112,10 @@
 // gather 4 k bytes an entry from src, which stays in L2 (Qaug at the
 // Netflix shape is 7.2 MB): 0.4 / 1.2 GB from memory for the sum and the
 // error mode, 0.12 / 0.36 ms; the error mode's 4 k + 7 operations an
-// entry take 0.61 ms at the FP32 peak.
+// entry take 0.61 ms at the FP32 peak.  The profile mode reads ent_fix
+// and ent_r once, b_u once a row, and gathers X's and Y's rows and b_j
+// (8 k + 4 bytes an entry, 14.3 MB at the Netflix shape: in L2); its 3 k
+// + 3 operations an entry take 0.46 ms at the FP32 peak at k = 100.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.  Plain C interface, loaded by ctypes.
@@ -483,7 +495,10 @@ step_agg_kernel(const StepArgs a) {
 struct GatherArgs {                // gather_agg_launch's arguments
   float* target;                   // [rows, kt], updated in place
   const float* src;                // [rows_fix, k], gathered by ent_fix
-  const float* prow;               // [rows, k]: error mode, or null (sum)
+  const float* prow;               // [rows, k]: error mode, or null
+  const float* src2;               // [rows_fix, k]: profile mode, or null
+  const float* bu;                 // [rows]: profile mode
+  const float* bi;                 // [rows_fix]: profile mode
   const int* blk_row;
   const int* blk_seg0;
   const int* blk_seg1;
@@ -492,15 +507,26 @@ struct GatherArgs {                // gather_agg_launch's arguments
   const float* ent_r;
   const float* ent_m;
   float mu, lo, hi;
-  int k, kt, n_rows, n_long;
+  int k, kt, n_rows, n_long, round;
 };
 
+// the modes of gather_row
+constexpr int GATHER_SUM = 0;
+constexpr int GATHER_ERR = 1;
+constexpr int GATHER_PROFILE = 2;
+
+__device__ __forceinline__ float maybe_round(float x, bool round) {
+  return round ? bf16_round(x) : x;
+}
+
 // one row's segments; BLOCK: all NW_STEP warps on the row, splitting each
-// segment, else one warp
-template <int KJ, bool ERR, int UU, bool BLOCK>
+// segment, else one warp; ROUND: each row rounded to bf16 before its sum
+template <int KJ, int MODE, bool ROUND, int UU, bool BLOCK>
 __device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
                                            int warp, int lane,
                                            float (*red)[NW_STEP][KJ * 32]) {
+  constexpr bool ERR = MODE == GATHER_ERR;
+  constexpr bool PROF = MODE == GATHER_PROFILE;
   const int k = a.k;
   const int kt = a.kt;
   const size_t row = static_cast<size_t>(a.blk_row[x]);
@@ -511,6 +537,8 @@ __device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
     acc[j] = c < kt ? a.target[row * kt + c] : 0.f;
     p[j] = (ERR && c < k) ? a.prow[row * k + c] : 0.f;
   }
+  // the profile mode's mu + b_u, once a row
+  const float base = PROF ? __fadd_rn(a.mu, a.bu[row]) : 0.f;
   int buf = 0;
   const int s1 = a.blk_seg1[x];
   for (int s = a.blk_seg0[x]; s < s1; ++s) {
@@ -531,15 +559,27 @@ __device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
       for (int u = 0; u < UU; ++u) {
         const bool ok = e + u < b1;
         const int i = ok ? e + u : b0;
-        const size_t g = static_cast<size_t>(a.ent_fix[i]) * k;
+        const int f = a.ent_fix[i];
+        const size_t g = static_cast<size_t>(f) * k;
         if constexpr (ERR) {
           r[u] = a.ent_r[i];
           m[u] = a.ent_m[i];
         }
+        if constexpr (PROF)     // r - ((mu + b_u) + b_j), as torch sums it
+          r[u] = __fsub_rn(a.ent_r[i], __fadd_rn(base, a.bi[f]));
 #pragma unroll
         for (int j = 0; j < KJ; ++j) {
           const int c = lane + 32 * j;
           v[u][j] = (ok && c < k) ? a.src[g + c] : 0.f;
+        }
+        if constexpr (PROF) {
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            const int c = lane + 32 * j;
+            v[u][j] = (ok && c < k)
+                          ? __fadd_rn(__fmul_rn(r[u], v[u][j]), a.src2[g + c])
+                          : 0.f;
+          }
         }
       }
       if constexpr (ERR) {
@@ -569,7 +609,7 @@ __device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
       for (int u = 0; u < UU; ++u) {
         if (e + u >= b1) break;
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) sum[j] += bf16_round(v[u][j]);
+        for (int j = 0; j < KJ; ++j) sum[j] += maybe_round(v[u][j], ROUND);
       }
     }
     if constexpr (BLOCK) {
@@ -597,7 +637,7 @@ __device__ __forceinline__ void gather_row(const GatherArgs& a, int x,
   }
 }
 
-template <int KJ, bool ERR>
+template <int KJ, int MODE, bool ROUND>
 __global__ void __launch_bounds__(NW_STEP * 32)
 gather_agg_kernel(const GatherArgs a) {
   constexpr int UU = KJ <= 2 ? 2 * U : U;
@@ -605,10 +645,11 @@ gather_agg_kernel(const GatherArgs a) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (static_cast<int>(blockIdx.x) < a.n_long) {     // block-uniform
-    gather_row<KJ, ERR, UU, true>(a, blockIdx.x, warp, lane, red);
+    gather_row<KJ, MODE, ROUND, UU, true>(a, blockIdx.x, warp, lane, red);
   } else {
     const int x = a.n_long + (blockIdx.x - a.n_long) * NW_STEP + warp;
-    if (x < a.n_rows) gather_row<KJ, ERR, UU, false>(a, x, warp, lane, red);
+    if (x < a.n_rows)
+      gather_row<KJ, MODE, ROUND, UU, false>(a, x, warp, lane, red);
   }
 }
 
@@ -685,9 +726,15 @@ cudaError_t launch(const GatherArgs& a, cudaStream_t s) {
   const int blocks =
       a.n_long + (a.n_rows - a.n_long + NW_STEP - 1) / NW_STEP;
   if (a.prow)
-    gather_agg_kernel<KJ, true><<<blocks, NW_STEP * 32, 0, s>>>(a);
+    gather_agg_kernel<KJ, GATHER_ERR, true><<<blocks, NW_STEP * 32, 0, s>>>(a);
+  else if (a.src2 && a.round)
+    gather_agg_kernel<KJ, GATHER_PROFILE, true>
+        <<<blocks, NW_STEP * 32, 0, s>>>(a);
+  else if (a.src2)
+    gather_agg_kernel<KJ, GATHER_PROFILE, false>
+        <<<blocks, NW_STEP * 32, 0, s>>>(a);
   else
-    gather_agg_kernel<KJ, false><<<blocks, NW_STEP * 32, 0, s>>>(a);
+    gather_agg_kernel<KJ, GATHER_SUM, true><<<blocks, NW_STEP * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -790,25 +837,36 @@ int step_agg_launch(float* tgt0, float* tgt1, const float* coef0,
 }
 
 // The gathered phase over rows x in [0, n_rows) of a segment table: with
-// prow null, target[blk_row[x]] += the segment sums of the bf16 rows
-// src[ent_fix[e]] (kt = k); with prow, of bf16(err_e * src[ent_fix[e]]
-// [:kt]), err_e = (ent_r[e] - clamp(mu + prow[blk_row[x]] .
-// src[ent_fix[e]], lo, hi)) * ent_m[e].  Rows [0, n_long) run one block
-// each.  kt <= k <= 256; indexing in size_t.  Returns a cudaError_t.
+// prow and src2 null, target[blk_row[x]] += the segment sums of the bf16
+// rows src[ent_fix[e]] (kt = k); with prow, of bf16(err_e *
+// src[ent_fix[e]][:kt]), err_e = (ent_r[e] - clamp(mu + prow[blk_row[x]]
+// . src[ent_fix[e]], lo, hi)) * ent_m[e]; with src2 (and bu, bi), of
+// res_e * src[ent_fix[e]] + src2[ent_fix[e]] (kt = k), res_e = ent_r[e] -
+// ((mu + bu[blk_row[x]]) + bi[ent_fix[e]]), rounded to bf16 when round,
+// else summed in full f32.  Rows [0, n_long) run one block each.  kt <= k
+// <= 256; indexing in size_t.  Returns a cudaError_t.
 int gather_agg_launch(float* target, const float* src, const float* prow,
+                      const float* src2, const float* bu, const float* bi,
                       const int* blk_row, const int* blk_seg0,
                       const int* blk_seg1, const int* seg_ptr,
                       const int* ent_fix, const float* ent_r,
                       const float* ent_m, float mu, float lo, float hi,
-                      int k, int kt, int n_rows, int n_long, void* stream) {
+                      int k, int kt, int n_rows, int n_long, int round,
+                      void* stream) {
   if (k < 1 || k > 32 * MAX_KJ || kt < 1 || kt > k ||
-      (!prow && kt != k) || n_rows < 0 || n_long < 0 || n_long > n_rows)
+      (!prow && kt != k) || (prow && src2) ||
+      (src2 && (!bu || !bi)) || (!src2 && !round) || n_rows < 0 ||
+      n_long < 0 || n_long > n_rows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   GatherArgs a;
   a.target = target;
   a.src = src;
   a.prow = prow;
+  a.src2 = src2;
+  a.bu = bu;
+  a.bi = bi;
+  a.round = round;
   a.blk_row = blk_row;
   a.blk_seg0 = blk_seg0;
   a.blk_seg1 = blk_seg1;

@@ -18,8 +18,14 @@ y, ``regularization_items`` -> K_items regularizes q and x,
 ``regularization_bias`` -> K_bias both biases).
 
 After ``train()`` the per-user profiles a_u are materialized into
-``self.P``, so retrieval (K3 on a CUDA model) serves an FN model
-unchanged: prediction is mu + b_u + b_i + P[u].Q[i].
+``self.P`` in full f32 (the alternating tier over its user layout, the
+fused tier from its padded lists), so retrieval (K3 on a CUDA model)
+serves an FN model unchanged: prediction is mu + b_u + b_i + P[u].Q[i].
+
+The alternating tier records the ``utils.profiling`` span tree
+``fn.train`` (``fn.init``, ``fn.layouts``, ``fn.upload``, ``fn.epochs``,
+``fn.profiles``, ``fn.writeback``) and the counters ``h2d_bytes`` and
+``fn.layouts_reused``.
 
 ``engine='auto'`` means ``'alternating'``; the sharded engine is not
 ported yet and raises.
@@ -34,6 +40,7 @@ from mfrec_tpu_torch.models.base import DefaultRate, Error
 from mfrec_tpu_torch.models.mf import MFRecommender, _host, _pad_rows
 from mfrec_tpu_torch.ops import fn as fn_ops
 from mfrec_tpu_torch.ops import sgd_mf
+from mfrec_tpu_torch.utils import profiling
 
 _UNPORTED_ENGINES = {
     'alternating_sharded': 'queue 1 item 9 (multi-device engines)',
@@ -126,28 +133,28 @@ class FNRecommender(MFRecommender):
 
     def _init_or_resume(self, initialize_model):
         '''A fresh ``FNState`` (its seed drawn from ``self.rng``, as the
-        JAX model draws it) or the model's current arrays, on the model's
-        device.'''
-        k = self.dimensionality
+        JAX model draws it) or a copy of the model's current arrays, on
+        the host (``_upload`` moves it to the model's device).'''
         if initialize_model or self.Q is None or self.X is None:
             return fn_ops.init_fn_state(
-                self.nbr_users, self.nbr_items, k,
+                self.nbr_users, self.nbr_items, self.dimensionality,
                 feature_init=self.feature_init,
                 seed=int(self.rng.integers(2 ** 31)),
-                mu=self.overall_bias or 0.0, device=self.device)
-        t = self._to_device
+                mu=self.overall_bias or 0.0, device='cpu')
         return fn_ops.FNState(
-            Q=t(self.Q), X=t(self.X), Y=t(self.Y), bu=t(self.users_bias),
-            bi=t(self.items_bias),
+            *(torch.from_numpy(np.array(a, np.float32)) for a in (
+                self.Q, self.X, self.Y, self.users_bias, self.items_bias)),
             mu=torch.tensor(np.float32(self.overall_bias or 0.0)))
 
-    def _materialize(self, state):
-        '''Post-train: the user profiles a_u into ``self.P`` (computed on
-        the model's device), and every factor back as numpy.'''
-        fl, fv, fm = (torch.from_numpy(a).to(self.device)
-                      for a in fn_ops.padded_user_lists(self.ratings))
-        profiles = fn_ops.user_aggregates(state, fl, fv, fm)
-        del fl, fv, fm
+    def _upload(self, host):
+        '''``host`` (an ``FNState`` from ``_init_or_resume``) on the
+        model's device.'''
+        return fn_ops.FNState(*(t.to(self.device) for t in host[:5]),
+                              mu=host.mu)
+
+    def _materialize(self, state, profiles):
+        '''Post-train: the user profiles a_u (computed on the model's
+        device) into ``self.P``, and every factor back as numpy.'''
         self.P = _host(profiles, self.nbr_users)
         self.Q = _host(state.Q, self.nbr_items)
         self.X = _host(state.X, self.nbr_items)
@@ -190,7 +197,7 @@ class FNRecommender(MFRecommender):
         uidx, iidx, vals = self.ratings.shuffled(
             int(self.rng.integers(2 ** 31)))
         self.compute_overall_avg()
-        state = self._init_or_resume(initialize_model)
+        state = self._upload(self._init_or_resume(initialize_model))
         lists = fn_ops.padded_user_lists(self.ratings)
         ub, ib, rb, mb = sgd_mf.batch_ratings(uidx, iidx, vals,
                                               self.batch_size)
@@ -209,23 +216,40 @@ class FNRecommender(MFRecommender):
         if verbose:
             for e, r in enumerate(driver.history):
                 self.logger.info('epoch %d rmse %.5f', e, r)
-        self._materialize(state)
+        self._materialize(state, fn_ops.user_aggregates(state, fl, fv, fm))
 
     def _train_alternating(self, initialize_model=True, verbose=False):
         '''Sorted-window alternating tier: profile aggregation, both
         half-passes and the X/Y steps, all window work on the model's
-        device.'''
-        self.compute_overall_avg()
-        k = self.dimensionality
-        epoch, state, args = self._fn_epoch(
-            self._init_or_resume(initialize_model))
-        Paug, Qaug, Xpad, Ypad = self._alternating_epochs(
-            ConvergenceDriver(1, self.nbr_epochs, self.min_improvement),
-            epoch, state, args, verbose=verbose)
-        self._materialize(fn_ops.FNState(
-            Q=Qaug[:self.nbr_items, :k], X=Xpad[:self.nbr_items],
-            Y=Ypad[:self.nbr_items], bu=Paug[:self.nbr_users, k],
-            bi=Qaug[:self.nbr_items, k + 1], mu=args[0]))
+        device; the span tree ``fn.train``.'''
+        with profiling.span('fn.train'):
+            self.compute_overall_avg()
+            k = self.dimensionality
+            with profiling.span('fn.init'):
+                host = self._init_or_resume(initialize_model)
+            # the call's layouts first, so that _fn_epoch finds them kept
+            with profiling.span('fn.layouts'):
+                self._alternating_layouts(
+                    512, reused_counter='fn.layouts_reused')
+            with profiling.span('fn.upload'):
+                epoch, state, (mu, p_layout, q_layout, nrm_rows) = \
+                    self._fn_epoch(self._upload(host))
+                profiling.count('h2d_bytes', sum(
+                    t.nbytes for t in (*host[:5], nrm_rows)))
+            with profiling.span('fn.epochs'):
+                Paug, Qaug, Xpad, Ypad = self._alternating_epochs(
+                    ConvergenceDriver(1, self.nbr_epochs,
+                                      self.min_improvement),
+                    epoch, state, (mu, p_layout, q_layout, nrm_rows),
+                    verbose=verbose)
+            final = fn_ops.FNState(
+                Q=Qaug[:self.nbr_items, :k], X=Xpad[:self.nbr_items],
+                Y=Ypad[:self.nbr_items], bu=Paug[:self.nbr_users, k],
+                bi=Qaug[:self.nbr_items, k + 1], mu=mu)
+            with profiling.span('fn.profiles'):
+                profiles = fn_ops.user_profiles(final, p_layout, nrm_rows)
+            with profiling.span('fn.writeback'):
+                self._materialize(final, profiles)
 
     def get_rmse_history(self):
         return np.asarray(self.rmse_history)

@@ -25,6 +25,7 @@ import torch
 
 from mfrec_tpu_torch.ops import sgd_mf, window_agg_kernel
 from mfrec_tpu_torch.ops.als import ieee_f32
+from mfrec_tpu_torch.utils import profiling
 
 
 class FNState(NamedTuple):
@@ -77,6 +78,34 @@ def user_aggregates(state, fl, fv, fm):
         agg = torch.bmm(resid[:, None, :], X[fl])[:, 0]
         agg = agg + torch.bmm(fm[:, None, :], Y[fl])[:, 0]
     return nrm * agg
+
+
+def user_profiles(state, layout, nrm_rows):
+    '''a_u for every user over the user layout ``layout``
+    (``sgd_mf.PassLayout``): [rows of ``nrm_rows``, k] f32 on the state's
+    device, the profiles ``user_aggregates`` gives, summed in full f32 in
+    another order and with no [U, L] list.  With the layout's segment
+    table, one ``profile_aggregate`` launch (its rows unrounded), else
+    one ``index_add_`` a batch of the layout's masked-in rows.  Holds no
+    tensor of one row an entry on a CUDA layout.'''
+    _, X, Y, bu, bi, mu = state
+    X, Y, bu, bi = (t.contiguous() for t in (X, Y, bu, bi))
+    mu = torch.as_tensor(mu, dtype=torch.float32)
+    A = torch.zeros((nrm_rows.shape[0], X.shape[1]), dtype=torch.float32,
+                    device=X.device)
+    seg = layout.segments
+    if seg is not None:
+        window_agg_kernel.profile_aggregate(A, X, Y, bu, bi, seg, mu,
+                                            rounded=False)
+    else:
+        with ieee_f32():
+            for b in range(layout.nbr_batches):
+                u, i = layout.u[b].long(), layout.i[b].long()
+                m = layout.m[b]
+                resid = layout.r[b] - (mu + bu[u] + bi[i])
+                A.index_add_(0, u, (resid[:, None] * X[i] + Y[i])
+                             * m[:, None])
+    return A * nrm_rows[:, None]
 
 
 def fn_plan(ub, ib, fl, fm, mb, device):
@@ -165,11 +194,14 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
     out:
 
       1. A[u] = nrm_u * sum_j [resid_uj x_j + y_j] (K4 over the user
-         layout), installed into the user factor columns.
+         layout; with a segment table ``profile_aggregate``, which makes
+         the rows itself), installed into the user factor columns.
       2. user half-pass with frozen factor columns: trains b_u only.
       3. item half-pass: trains q_i and b_i against the profiles.
       4. G[u] = nrm_u * sum_{i in R(u)} err_ui q_i (K4 over the user
-         layout).
+         layout; with a segment table ``error_aggregate``, which computes
+         the errors in the kernel).  With a table no phase holds a tensor
+         of one row an entry.
       5. x_j += lr_xy*(mean_u resid_uj G[u] - K_x x_j) and
          y_j += lr_xy*(mean_u G[u] - K_y y_j), batch after batch over the
          item layout: ``step_aggregate`` over the layout's segment table
@@ -183,9 +215,13 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
     installed a_u, column k the learned b_u.  Xpad/Ypad: [I + W_item, k];
     nrm_rows: [U + W_user] per-user |R(u)|^-1/2 (0 for none).
     ``on_phase(name)``, if given, is called as each phase ends (a timing
-    hook: 'profiles', 'half-passes', 'aggregate errors', 'X/Y step').'''
+    hook: 'profiles', 'half-passes', 'aggregate errors', 'X/Y step').
+    Recorded by ``utils.profiling``: ``fn.aggregate`` around each
+    aggregation's launch, ``fn.half_passes`` around the two half-passes,
+    ``fn.xy_step`` around the item step.'''
     K_x = K if K_x is None else K_x
     K_y = K if K_y is None else K_y
+    lo_c, hi_c = (lo, hi) if clamp_pred else (-np.inf, np.inf)
     base = sgd_mf.make_alternating_epoch(
         W_user, W_item, lr, K, lr_bu=lr_bu, lr_bi=lr_bi, K_bu=K_bu,
         K_bi=K_bi, bias_mode='learned', clamp_pred=clamp_pred, lo_r=lo,
@@ -211,13 +247,18 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
             resid = r - (mu + bu[u] + bi[i])
             return resid[:, None] * Xpad[i] + Ypad[i]
 
-        A = sgd_mf._scan_window_agg(zeros(), p_layout, xy_src, W_user,
-                                    mean=False)
+        with profiling.span('fn.aggregate'):
+            A = sgd_mf._scan_window_agg(
+                zeros(), p_layout, xy_src, W_user, mean=False,
+                fused=lambda t, seg: window_agg_kernel.profile_aggregate(
+                    t, Xpad, Ypad, bu, bi, seg, mu))
         Paug[:, :k] = A * nrm_rows[:, None]
         mark('profiles')
 
         # 2+3) half-passes (user side factor-frozen: b_u only)
-        Paug, Qaug, rmse = base(Paug, Qaug, mu, p_layout, q_layout, float(s))
+        with profiling.span('fn.half_passes'):
+            Paug, Qaug, rmse = base(Paug, Qaug, mu, p_layout, q_layout,
+                                    float(s))
         mark('half-passes')
 
         # 4) error-weighted item-factor sums into user windows
@@ -228,8 +269,11 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
                 pred = sgd_mf.clamp(pred, lo, hi)
             return ((r - pred) * m)[:, None] * ff[:, :k]
 
-        G = sgd_mf._scan_window_agg(zeros(), p_layout, err_q, W_user,
-                                    mean=False)
+        with profiling.span('fn.aggregate'):
+            G = sgd_mf._scan_window_agg(
+                zeros(), p_layout, err_q, W_user, mean=False,
+                fused=lambda t, seg: window_agg_kernel.error_aggregate(
+                    t, Paug, Qaug, seg, mu, lo_c, hi_c))
         G = G * nrm_rows[:, None]
         mark('aggregate errors')
 
@@ -241,27 +285,29 @@ def make_fn_alternating_epoch(W_user, W_item, lr, lr_bu, lr_bi, lr_xy,
             raise ValueError('layout window %d != epoch window %d'
                              % (q_layout.W, W_item))
         seg = q_layout.segments
-        if seg is not None:
-            # over the item layout's segment table (the entries' fixed ids
-            # are users, their rows items): X and Y in one launch, or one
-            # launch each when [X | Y] is wider than K4 takes (gX reads
-            # only winX and gY only winY, so the two give the same result)
-            resid = seg.ent_r - (mu + bu2[seg.ent_fix.long()]
-                                 + bi2[seg.ent_row.long()])
-            G = G.contiguous()
-            kw = dict(step=step_xy, row_mean=row_mean)
-            if 2 * k <= window_agg_kernel.MAX_K:
-                window_agg_kernel.step_aggregate(
-                    (Xpad, Ypad), G, seg, coef=(resid, None),
-                    decay=(K_x, K_y), **kw)
+        with profiling.span('fn.xy_step'):
+            if seg is not None:
+                # over the item layout's segment table (the entries' fixed
+                # ids are users, their rows items): X and Y in one launch,
+                # or one launch each when [X | Y] is wider than K4 takes
+                # (gX reads only winX and gY only winY, so the two give
+                # the same result)
+                resid = seg.ent_r - (mu + bu2[seg.ent_fix]
+                                     + bi2[seg.ent_row])
+                G = G.contiguous()
+                kw = dict(step=step_xy, row_mean=row_mean)
+                if 2 * k <= window_agg_kernel.MAX_K:
+                    window_agg_kernel.step_aggregate(
+                        (Xpad, Ypad), G, seg, coef=(resid, None),
+                        decay=(K_x, K_y), **kw)
+                else:
+                    window_agg_kernel.step_aggregate(
+                        (Xpad,), G, seg, coef=(resid,), decay=(K_x,), **kw)
+                    window_agg_kernel.step_aggregate((Ypad,), G, seg,
+                                                     decay=(K_y,), **kw)
             else:
-                window_agg_kernel.step_aggregate(
-                    (Xpad,), G, seg, coef=(resid,), decay=(K_x,), **kw)
-                window_agg_kernel.step_aggregate((Ypad,), G, seg,
-                                                 decay=(K_y,), **kw)
-        else:
-            xy_step_batches(Xpad, Ypad, G, q_layout, mu, bu2, bi2, K_x, K_y,
-                            step_xy, row_mean)
+                xy_step_batches(Xpad, Ypad, G, q_layout, mu, bu2, bi2, K_x,
+                                K_y, step_xy, row_mean)
         mark('X/Y step')
         return Paug, Qaug, Xpad, Ypad, rmse
 

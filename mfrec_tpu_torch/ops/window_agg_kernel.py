@@ -41,6 +41,12 @@ Three entry points, each with its plain version beside it:
   from ``prow`` (Peff) and the gathered ``src`` (Qaug).
   ``gather_aggregate_ref`` and ``error_aggregate_ref`` are the plain
   versions: the materialized rows, then ``scan_aggregate_ref``.
+* ``profile_aggregate(target, X, Y, bu, bi, segments, mu)``: the FN
+  epoch's profile phase in one launch, ``scan_aggregate`` of the rows
+  ``res_e * X[fix_e] + Y[fix_e]`` (``res_e = r_e - ((mu + bu[row]) +
+  bi[fix_e])``) made in the kernel; with ``rounded=False`` the rows are
+  summed in full f32 (the served profiles).  ``profile_aggregate_ref`` is
+  the plain version: the materialized rows, then ``scan_aggregate_ref``.
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors -- by where the tensors lie, never by what is
@@ -154,11 +160,12 @@ def _scratch_ints(lib, W):
     return _scratch[W]
 
 
-def scan_aggregate_ref(target, vals, segments, mean=False):
+def scan_aggregate_ref(target, vals, segments, mean=False, rounded=True):
     '''The plain version of ``scan_aggregate``: each segment's sum of
     bf16-rounded rows (``index_add_``; divided by its length when
     ``mean``), added into its row's target in segment (batch) order, in
-    the target's type (float64 gives the exact sums of the bf16 rows).'''
+    the target's type (float64 gives the exact sums of the bf16 rows).
+    ``rounded=False`` sums the rows as they are.'''
     seg = segments
     n_seg = int(seg.seg_cnt.shape[0])
     if n_seg == 0:
@@ -168,7 +175,8 @@ def scan_aggregate_ref(target, vals, segments, mean=False):
     seg_of = torch.repeat_interleave(
         torch.arange(n_seg, device=vals.device), lens.long())
     sums = torch.zeros((n_seg, k), dtype=target.dtype, device=vals.device)
-    sums.index_add_(0, seg_of, vals.to(torch.bfloat16).to(target.dtype))
+    sums.index_add_(0, seg_of, (vals.to(torch.bfloat16) if rounded
+                                else vals).to(target.dtype))
     if mean:
         sums = sums / torch.clamp(lens.to(target.dtype), min=1.0)[:, None]
     rows = seg.blk_row.long()
@@ -388,7 +396,8 @@ def error_aggregate_ref(target, prow, src, segments, mu, lo, hi):
     return scan_aggregate_ref(target, vals, seg)
 
 
-def _check_gather(target, src, prow, segments):
+def _check_gather(target, src, prow, segments, src2=None, bu=None,
+                  bi=None):
     kt = target.shape[1] if target.dim() == 2 else -1
     k = src.shape[1] if src.dim() == 2 else -1
     if not 1 <= kt <= k <= MAX_K or (prow is None and kt != k):
@@ -396,13 +405,22 @@ def _check_gather(target, src, prow, segments):
                          '<= %d (kt == k without prow)' % MAX_K)
     if prow is not None and (prow.dim() != 2 or prow.shape[1] != k):
         raise ValueError('prow must be [rows, %d]' % k)
+    if src2 is not None and tuple(src2.shape) != tuple(src.shape):
+        raise ValueError('Y must be shaped as X, %s' % (tuple(src.shape),))
+    if src2 is not None and (bu.dim() != 1 or bi.dim() != 1):
+        raise ValueError('bu and bi must be vectors')
     if segments.max_row >= target.shape[0] or segments.max_fix >= \
             src.shape[0] or (prow is not None and
-                             segments.max_row >= prow.shape[0]):
-        raise ValueError('the segment table reads past target, prow or src')
+                             segments.max_row >= prow.shape[0]) or \
+            (src2 is not None and (segments.max_row >= bu.shape[0] or
+                                   segments.max_fix >= bi.shape[0])):
+        raise ValueError('the segment table reads past target, prow, src, '
+                         'bu or bi')
     named = [('target', target), ('src', src)]
     if prow is not None:
         named.append(('prow', prow))
+    if src2 is not None:
+        named += [('Y', src2), ('bu', bu), ('bi', bi)]
     for name, t in named:
         if t.dtype != torch.float32:
             raise ValueError('%s must be float32, got %s' % (name, t.dtype))
@@ -417,7 +435,8 @@ def _check_gather(target, src, prow, segments):
             raise ValueError('%s must be contiguous' % name)
 
 
-def _launch_gather(target, src, prow, segments, mu, lo, hi, name):
+def _launch_gather(target, src, prow, segments, mu, lo, hi, name,
+                   src2=None, bu=None, bi=None, rounded=True):
     dev = target.device
     if dev.type != 'cuda':
         raise ValueError('%s runs on cuda or cpu tensors, not %s'
@@ -431,13 +450,14 @@ def _launch_gather(target, src, prow, segments, mu, lo, hi, name):
     with torch.cuda.device(dev):
         rc = lib.gather_agg_launch(
             target.data_ptr(), src.data_ptr(),
-            None if prow is None else prow.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (prow, src2, bu, bi)),
             seg.blk_row.data_ptr(), seg.blk_seg0.data_ptr(),
             seg.blk_seg1.data_ptr(), seg.seg_ptr.data_ptr(),
             seg.ent_fix.data_ptr(), seg.ent_r.data_ptr(),
             seg.ent_m.data_ptr(), float(mu), float(lo), float(hi),
             src.shape[1], target.shape[1], n_rows, n_long,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(rounded)), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc)
     return True
 
@@ -484,6 +504,42 @@ def error_aggregate(target, prow, src, segments, mu, lo, hi):
 error_aggregate.launches = 0
 
 
+def profile_aggregate_ref(target, X, Y, bu, bi, segments, mu,
+                          rounded=True):
+    '''The plain version of ``profile_aggregate``: the rows ``res_e *
+    X[fix_e] + Y[fix_e]`` materialized as the FN epoch's source function
+    made them, then ``scan_aggregate_ref``.'''
+    seg = segments
+    f = seg.ent_fix.long()
+    res = seg.ent_r - (torch.as_tensor(mu, dtype=torch.float32)
+                       + bu[seg.ent_row.long()] + bi[f])
+    vals = res[:, None] * X[f] + Y[f]
+    return scan_aggregate_ref(target, vals, seg, rounded=rounded)
+
+
+def profile_aggregate(target, X, Y, bu, bi, segments, mu, rounded=True):
+    '''K4's FN profile phase over rows it makes: for every row x of
+    segment table ``segments`` and each entry e of it, ``res_e = r_e -
+    ((mu + bu[x]) + bi[fix_e])``, and each segment's sum of the rows
+    ``res_e * X[fix_e] + Y[fix_e]`` (the product rounded, then the sum: no
+    fused multiply-add), each rounded to bf16 (``rounded=False``: summed
+    in full f32), added into ``target [rows, k]`` in batch order (``X``,
+    ``Y [rows_fix, k]``, ``bu [rows]``, ``bi [rows_fix]`` f32).  Updates
+    and returns ``target``.  CUDA tensors: one launch of
+    ``csrc/window_agg.cu``; CPU tensors: ``profile_aggregate_ref``.'''
+    _check_gather(target, X, None, segments, Y, bu, bi)
+    if target.device.type == 'cpu':
+        return profile_aggregate_ref(target, X, Y, bu, bi, segments, mu,
+                                     rounded)
+    if _launch_gather(target, X, None, segments, mu, 0.0, 0.0,
+                      'profile_aggregate', Y, bu, bi, rounded):
+        profile_aggregate.launches += 1
+    return target
+
+
+profile_aggregate.launches = 0
+
+
 def _raise_on(lib, rc):
     if rc != 0:
         raise RuntimeError('window_agg kernel launch failed: CUDA error %d '
@@ -504,8 +560,8 @@ def _declare(lib):
     lib.step_agg_launch.argtypes = [p, p, p, p, f, f, p, p, p, p, p, p, p, f,
                                     i, i, i, i, i, p]
     lib.step_agg_launch.restype = i
-    lib.gather_agg_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, f, f, f,
-                                      i, i, i, i, p]
+    lib.gather_agg_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                      f, f, f, i, i, i, i, i, p]
     lib.gather_agg_launch.restype = i
 
 

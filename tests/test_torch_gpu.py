@@ -830,6 +830,111 @@ def test_gather_aggregate_kernels_match_plain(cuda, mode, k,
     assert over < 1e-2
 
 
+@pytest.mark.parametrize('rounded', [True, False])
+@pytest.mark.parametrize('k', [3, 64, 100, 256])
+def test_profile_aggregate_kernel_matches_plain(cuda, k, rounded,
+                                                record_property):
+    '''``profile_aggregate`` (FN's phase 1; unrounded, the served
+    profiles) against its plain version on a user layout whose heaviest
+    user has 17,653 ratings (the Netflix Prize set's most, over several
+    batches: the 16-warp block path), a user above AGG_BLOCK_ROW in one
+    batch, users with one rating and users with none.  Kernel and plain
+    version make the same rows (the product rounded, then the sum: no
+    FMA), so the rows' bf16 values agree and only a heavy row's f32 sum
+    order differs: K4_TOL, or at most twice as far from the float64 sum
+    of the same rows as the plain version (``chip_smoke._k4_ok``).  A
+    second launch is bit-identical.'''
+    import chip_smoke
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops import window_agg_kernel as wak
+    rng = np.random.default_rng(k + 7 * rounded)
+    U, I, N, W = 900, 18000, 60000, 64
+    u = rng.integers(10, U - 100, N).astype(np.int32)
+    u[:17653] = 3                    # the heaviest user, several batches
+    u[17653:20653] = 5               # above AGG_BLOCK_ROW
+    u[20653:20693] = np.arange(U - 100, U - 60)      # one rating each
+    i = rng.integers(0, I, N).astype(np.int32)
+    i[:17653] = rng.permutation(I)[:17653]
+    v = (rng.integers(2, 11, N) / 2).astype(np.float32)
+    lay = sgd_mf.sorted_pass_layout(u, i, v, 4096, axis='user',
+                                    max_window=W)
+    seg = hk.build_segments(lay[1], lay[2], lay[3], lay[4], lay[5], W, cuda)
+    assert seg.longest == 17653 and seg.longest_segments >= 4
+    assert int((seg.blk_len >= wak.AGG_BLOCK_ROW).sum()) == 2
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy(rng.normal(0, s, shape).astype(
+            np.float32)).to(cuda)
+
+    X, Y, bi = t(I + W, k, s=0.05), t(I + W, k, s=0.05), t(I + W, s=0.3)
+    bu, t0 = t(U + W, s=0.3), t(U + W, k)
+    mu = torch.tensor(3.6)
+    args = (X, Y, bu, bi, seg, mu, rounded)
+    before = wak.profile_aggregate.launches
+    got = wak.profile_aggregate(t0.clone(), *args)
+    again = wak.profile_aggregate(t0.clone(), *args)
+    torch.cuda.synchronize()
+    assert wak.profile_aggregate.launches == before + 2
+    want = wak.profile_aggregate_ref(t0.clone(), *args)
+    assert torch.equal(got, again)
+    assert torch.equal(got[U - 50:U], t0[U - 50:U])          # no ratings
+    f = seg.ent_fix.long()
+    res = seg.ent_r - (mu.to(cuda) + bu[seg.ent_row.long()] + bi[f])
+    rows = res[:, None] * X[f] + Y[f]
+    exact = wak.scan_aggregate_ref(t0.double(), rows, seg, rounded=rounded)
+    ok, err, k64, p64 = chip_smoke._k4_ok(got, want, exact)
+    record_property('profile_mode', dict(max_abs_err=err, kernel_err_f64=k64,
+                                         plain_err_f64=p64))
+    assert ok, (err, k64, p64)
+
+
+def test_fn_epoch_memory_does_not_scale_with_entries(cuda):
+    '''An FN epoch on CUDA layouts with segment tables, and the served
+    profiles after it, hold no tensor of one row an entry: their peak
+    memory above the inputs stays under a few [U, k+2] factor tensors
+    and the per-entry scalars of the X/Y step, at a shape where one [n,
+    k] f32 tensor would be 10 times that.'''
+    from mfrec_tpu_torch.ops import fn as fn_ops
+    from mfrec_tpu_torch.ops import sgd_mf
+    U, I, N, k, W = 2000, 400, 2_000_000, 100, 512
+    rng = np.random.default_rng(7)
+    u = rng.integers(0, U, N).astype(np.int32)
+    i = rng.integers(0, I, N).astype(np.int32)
+    v = rng.uniform(1, 5, N).astype(np.float32)
+    pl_, ql_ = (sgd_mf.PassLayout(sgd_mf.sorted_pass_layout(
+        u, i, v, 16384, axis=a, max_window=W), a, cuda, segments=True)
+        for a in ('user', 'item'))
+
+    def t(*shape, s=0.05):
+        return torch.from_numpy(rng.normal(0, s, shape).astype(
+            np.float32)).to(cuda)
+
+    Pa, Qa = sgd_mf.augment_factors(torch.zeros((U + W, k), device=cuda),
+                                    t(I + W, k), t(U + W), t(I + W))
+    X, Y = t(I + W, k), t(I + W, k)
+    nrm = torch.full((U + W,), 1.0 / np.sqrt(N / U), device=cuda)
+    ep = fn_ops.make_fn_alternating_epoch(
+        W, W, 0.15, 0.15, 0.15, 0.15, 0.015, 0.007, 0.007, inner_steps=4,
+        use_kernel=True)
+    mu = torch.tensor(3.6)
+    ep(Pa, Qa, X, Y, mu, pl_, ql_, nrm)              # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    *_, rmse = ep(Pa, Qa, X, Y, mu, pl_, ql_, nrm)
+    served = fn_ops.user_profiles(fn_ops.FNState(
+        Q=Qa[:I, :k], X=X[:I], Y=Y[:I], bu=Pa[:, k], bi=Qa[:I, k + 1],
+        mu=mu), pl_, nrm)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    factor = Pa.nbytes
+    assert np.isfinite(float(rmse)) and bool(torch.isfinite(served).all())
+    # the X/Y step's residuals and their terms: 20 bytes an entry
+    assert above <= 12 * factor + 20 * N, (above, factor)
+    assert above * 10 < N * k * 4, (above, N * k * 4)
+
+
 def test_svdpp_epoch_memory_does_not_scale_with_entries(cuda):
     '''An SVD++ epoch on a CUDA layout with a segment table holds no
     tensor of one row an entry: its peak memory above its inputs stays
@@ -918,16 +1023,18 @@ def test_cuda_tier_epochs_match_cpu(cuda, tier):
                 inner_steps=8, use_kernel=True)
             state = (Pa, Qa, X, Y)
         fns = (hk.half_pass, wak.scan_aggregate, wak.gather_aggregate,
-               wak.error_aggregate, wak.window_aggregate, wak.step_aggregate)
+               wak.error_aggregate, wak.window_aggregate, wak.step_aggregate,
+               wak.profile_aggregate)
         counts = [f.launches for f in fns]
         for _ in range(2):
             *state, rmse = ep(*state, mu, pl_, ql_, nrm)
         got = tuple(f.launches - c for f, c in zip(fns, counts))
-        # the item step: one launch per epoch, none per batch; SVD++'s
-        # phases through the gathered entries, FN's through scan_aggregate
-        want = (4, 0, 2, 2, 0, 2) if tier == 'implicit' else \
-            (4, 4, 0, 0, 0, 2)
-        assert got == (want if dev == 'cuda' else (0,) * 6)
+        # the item step: one launch per epoch, none per batch; the user
+        # phases through K4g's gathered entries (SVD++'s sum and error
+        # modes, FN's profile and error modes), none through scan_aggregate
+        want = (4, 0, 2, 2, 0, 2, 0) if tier == 'implicit' else \
+            (4, 0, 0, 2, 0, 2, 2)
+        assert got == (want if dev == 'cuda' else (0,) * 7)
         out[dev] = [x.cpu() for x in state] + [float(rmse)]
     for a, b in zip(out['cuda'][:-1], out['cpu'][:-1]):
         torch.testing.assert_close(a, b, **K1_TOL)
@@ -967,13 +1074,16 @@ def test_cuda_models_train_svdpp_and_fn(cuda):
                                   'min_improvement': -1.0}, device='cuda')
     def phase_launches():
         return (wak.scan_aggregate.launches + wak.gather_aggregate.launches
-                + wak.error_aggregate.launches)
+                + wak.error_aggregate.launches
+                + wak.profile_aggregate.launches)
 
-    for m, train in ((gd, gd.feature_training_implicit), (fn, fn.train)):
+    # two an epoch; FN's call also sums its served profiles (one launch)
+    for m, train, n in ((gd, gd.feature_training_implicit, 6),
+                        (fn, fn.train, 7)):
         m.set_ratings(u, i, v)
         before = phase_launches()
         train()
-        assert phase_launches() == before + 6
+        assert phase_launches() == before + n
         h = m.get_rmse_history()
         assert np.isfinite(h).all() and h[-1] < h[0]
         assert isinstance(m.P, np.ndarray) and np.isfinite(m.Y).all()

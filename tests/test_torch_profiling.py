@@ -12,6 +12,7 @@ import threading
 import numpy as np
 import pytest
 
+from mfrec_tpu_torch.models.fn import FNRecommender
 from mfrec_tpu_torch.models.gd import GDRecommender
 from mfrec_tpu_torch.models.wrmf import WRMFRecommender
 from mfrec_tpu_torch.ops import _cuda_build
@@ -28,6 +29,12 @@ SVDPP_CHILDREN = ['svdpp.init', 'svdpp.layouts', 'svdpp.bias',
 # the Y step; then the driver's wait for the epoch's rmse
 SVDPP_EPOCH = ['svdpp.aggregate', 'svdpp.half_passes', 'svdpp.aggregate',
                'svdpp.y_step', 'converge.sync']
+FN_CHILDREN = ['fn.init', 'fn.layouts', 'fn.upload', 'fn.epochs',
+               'fn.profiles', 'fn.writeback']
+# inside each FN epoch, in order: the profile sums, the half-passes, the
+# error sums, the X/Y step; then the driver's wait for the epoch's rmse
+FN_EPOCH = ['fn.aggregate', 'fn.half_passes', 'fn.aggregate', 'fn.xy_step',
+            'converge.sync']
 WRMF_CHILDREN = ['wrmf.init', 'wrmf.feedback', 'wrmf.buckets', 'als.upload',
                  'als.epochs', 'wrmf.writeback']
 
@@ -211,6 +218,66 @@ def test_svdpp_h2d_bytes(recording):
     U, I, k, W = 60, 40, 6, 512
     want = 4 * (U * k + I * k + U + I + I * k + U + W)
     assert profiling.collect().counters == {'h2d_bytes': want}
+
+
+def _fn(epochs=2):
+    m = FNRecommender(60, 40, {'nbr_features': 6, 'nbr_epochs': epochs,
+                               'batch_size': 512, 'inner_steps': 4,
+                               'feature_init': 0.05,
+                               'min_improvement': -1.0}, device='cpu')
+    m.seed(3)
+    m.set_ratings(*_stream())
+    m.ratings.nnz
+    profiling.collect()
+    return m
+
+
+def test_fn_span_tree(recording):
+    '''Two calls: the second finds its layouts kept (one count); each
+    epoch's spans lie under ``fn.epochs`` in phase order, the served
+    profiles in ``fn.profiles`` after them.'''
+    m = _fn()
+    m.train()
+    m.train(initialize_model=False)
+    rec = profiling.collect()
+    roots = [s for s in rec.spans if s.parent is None]
+    assert [s.name for s in roots] == ['fn.train', 'fn.train']
+    for root in roots:
+        spans = [s for s in rec.spans if s.call == root.id]
+        assert _children(spans, root) == FN_CHILDREN
+        epochs = next(s for s in spans if s.name == 'fn.epochs')
+        assert _children(spans, epochs) == FN_EPOCH * 2
+        assert len(spans) == 1 + len(FN_CHILDREN) + 2 * len(FN_EPOCH)
+    assert rec.counters['fn.layouts_reused'] == 1
+    # the recording leaves the numbers alone
+    profiling.disable()
+    off = _fn()
+    off.train()
+    off.train(initialize_model=False)
+    for name in ('P', 'Q', 'X', 'Y', 'users_bias', 'items_bias'):
+        np.testing.assert_array_equal(getattr(off, name), getattr(m, name))
+    assert off.rmse_history == m.rmse_history
+
+
+def test_fn_h2d_bytes(recording):
+    '''Q, X, Y, the biases and the per-user norms (padded by the
+    window), in f32; a first call builds its layouts, so nothing is
+    reused.'''
+    m = _fn(epochs=1)
+    m.train()
+    U, I, k, W = 60, 40, 6, 512
+    want = 4 * (3 * I * k + U + I + U + W)
+    assert profiling.collect().counters == {'h2d_bytes': want}
+
+
+def test_fn_fused_tier_records_no_alternating_spans(recording):
+    '''The per-batch scatter tier runs none of the alternating tier's
+    phases, so it records none of its spans.'''
+    m = _fn(epochs=1)
+    m.engine = 'fused'
+    m.train()
+    assert not [s for s in profiling.collect().spans
+                if s.name.startswith('fn.')]
 
 
 def test_wrmf_train_span_tree_and_h2d_bytes(recording):

@@ -377,3 +377,67 @@ def test_gathered_entries_check_their_arguments():
             **{f_: getattr(seg, f_).to('meta') for f_ in (
                 'blk_row', 'blk_seg0', 'blk_seg1', 'seg_ptr', 'ent_fix',
                 'ent_r', 'ent_m', 'ent_row')}), 3.0, 1.0, 5.0)
+
+
+def _fn_inputs(f, k, seed=3):
+    '''FN's profile inputs beside a ``_user_case``: X the gathered rows,
+    Y, b_u a user and b_j an item, mu.'''
+    rng = np.random.default_rng(seed + k)
+    X = f['src']
+    Y = torch.from_numpy(rng.normal(0, 0.5, X.shape).astype(np.float32))
+    bu = torch.from_numpy(rng.normal(0, 0.3, f['T0'].shape[0]).astype(
+        np.float32))
+    bi = torch.from_numpy(rng.normal(0, 0.3, X.shape[0]).astype(np.float32))
+    return X, Y, bu, bi, torch.tensor(np.float32(3.6))
+
+
+@pytest.mark.parametrize('k', [3, 64, 100])
+def test_profile_aggregate_plain_is_the_composition(k):
+    '''``profile_aggregate`` on CPU tensors is the FN epoch's phase 1 as it
+    was composed -- ``xy_src``'s rows (``resid * Xpad[i] + Ypad[i]``, the
+    residual from ``mu + bu[u] + bi[i]``) materialized, then
+    ``scan_aggregate_ref`` -- bit for bit; the float64 sums of those bf16
+    rows within TOL; unrounded, each segment's f32 sum of the rows as they
+    are; a row with no entry keeps its target.'''
+    seg, f = _user_case(k, k)
+    X, Y, bu, bi, mu = _fn_inputs(f, k)
+    U = f['T0'].shape[0] - 8
+    u, i, r = seg.ent_row.long(), seg.ent_fix.long(), seg.ent_r
+    resid = r - (mu + bu[u] + bi[i])
+    rows = resid[:, None] * X[i] + Y[i]
+    before = window_agg_kernel.profile_aggregate.launches
+    got = window_agg_kernel.profile_aggregate(f['T0'].clone(), X, Y, bu, bi,
+                                              seg, mu)
+    assert window_agg_kernel.profile_aggregate.launches == before
+    want = window_agg_kernel.scan_aggregate_ref(f['T0'].clone(), rows, seg)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(),
+                               _per_row_sums(seg, rows, f['T0']).numpy(),
+                               **TOL)
+    assert torch.equal(got[U - 6:], f['T0'][U - 6:])            # no entries
+    raw = window_agg_kernel.profile_aggregate(
+        f['T0'].clone(), X, Y, bu, bi, seg, mu, rounded=False)
+    exact = f['T0'].double().index_add(0, u, rows.double())
+    np.testing.assert_allclose(raw.numpy(), exact.numpy(), rtol=1e-6,
+                               atol=1e-5)
+    assert not torch.equal(raw, got)           # the rounding is switched off
+
+
+def test_profile_aggregate_checks_its_arguments():
+    seg, f = _user_case(6, 6)
+    X, Y, bu, bi, mu = _fn_inputs(f, 6)
+    T0 = f['T0']
+    prof = window_agg_kernel.profile_aggregate
+    with pytest.raises(ValueError):                  # Y of another width
+        prof(T0, X, Y[:, :5].contiguous(), bu, bi, seg, mu)
+    with pytest.raises(ValueError):                  # bu too short
+        prof(T0, X, Y, bu[:3], bi, seg, mu)
+    with pytest.raises(ValueError):                  # bi too short
+        prof(T0, X, Y, bu, bi[:3], seg, mu)
+    with pytest.raises(ValueError):                  # not contiguous
+        prof(T0, X, Y, torch.stack([bu, bu], 1)[:, 0], bi, seg, mu)
+    with pytest.raises(ValueError):                  # f64 Y
+        prof(T0, X, Y.double(), bu, bi, seg, mu)
+    with pytest.raises(ValueError):                  # k past K4's limit
+        wide = torch.zeros((X.shape[0], 257))
+        prof(torch.zeros((T0.shape[0], 257)), wide, wide, bu, bi, seg, mu)
