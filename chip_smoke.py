@@ -10,6 +10,7 @@ Smoke run of the PyTorch/CUDA port (``mfrec_tpu_torch``) on one GPU.
     python3 chip_smoke.py --phases 19   # ... example 2's workflow
     python3 chip_smoke.py --phases 12k  # ... KMF's main path (S2, K1, K3)
     python3 chip_smoke.py --ab k1 A B B A   # K1 in checkouts A and B
+    python3 chip_smoke.py --ab k1f A B B A  # FN's user half-pass: K1f or K1
     python3 chip_smoke.py --ab k4 A B B A   # K4's per call, the same way
     python3 chip_smoke.py --ab k1-rows B    # K1's cluster-row threshold
     python3 chip_smoke.py --ab als A B B A  # the ALS CG path, the same way
@@ -34,7 +35,12 @@ Phase 2  each kernel against its plain PyTorch version on the card:
          and the hot item's chain, whose cluster blocks stage part of
          each slice and stream the rest), edge cases
          and a whole half-pass at a reduced size, then whole half-passes
-         and the longest chain timed; K2's M-given entry on edge cases
+         and the longest chain timed; K1f (FN's user half-pass, k=102,
+         f32, T=32) on the first user batches, the heaviest user's chain
+         and the whole user half-pass against K1's plain version, timed
+         beside K1 with the same rates, and at phase 7's shape (k=66,
+         T=64, W=512) on the first user batches and the heaviest user's
+         chain; K2's M-given entry on edge cases
          and at the largest user bucket's shape, and the fused K2 on
          seeded buckets (k 8 to 256, L 8 to 16,384); K4's per-call sum at
          the JAX
@@ -84,7 +90,9 @@ Phase 6  the SVD++ tier end to end at the ML-10M shape:
          against the same epoch on CPU tensors at 3,000 x 700, and the
          agg-only tier (K4 per batch and sweep) there too.
 Phase 7  the FN tier the same way: ``FNRecommender.train()`` at
-         bench.py's operating point (T=64), then retrieval through K3
+         bench.py's operating point (T=64; the user half-pass through
+         K1f, the item half-pass through K1: one launch each an epoch),
+         then retrieval through K3
          from the materialized profiles against the plain version, and
          one ``add_user`` fold-in.
 Phase 8  the probe tools: P1 and P2 against their plain versions on the
@@ -154,6 +162,9 @@ Phase k  KMF's main path on the card: (a) ``KMFRecommender.train()``
 
 ``--ab`` times K1 (``kernel_probe``'s hiT, the ML-10M-shape half-passes,
 the hot item's chain, the logistic link's item half-pass and chain),
+FN's user half-pass at k 102, T 32 (``k1f``: through K1 with FN's rates,
+and through K1f where the checkout has it, with its bound, its plain
+version's time and its agreement with K1's plain version),
 K3 (the bench shape exact and fast, with and without 64 rated ids, and
 the serving batch: CUDA events, device time per kernel, the wrapper's
 host time, the composed yardstick, the grid's split rule swept),
@@ -299,11 +310,7 @@ def device_ms(fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        total += getattr(e, 'self_device_time_total',
-                         getattr(e, 'self_cuda_time_total', 0.0))
-    return total / 1e3 / n
+    return sum(b - a for _, a, b in trace_device_ops(prof)) / 1e3 / n
 
 
 def kernel_device_ms(fn, name, n=10):
@@ -320,9 +327,7 @@ def kernel_device_ms(fn, name, n=10):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        durs = [e.time_range.end - e.time_range.start for e in prof.events()
-                if name in e.name
-                and str(getattr(e, 'device_type', '')).endswith('CUDA')]
+        durs = [b - a for x, a, b in trace_device_ops(prof) if name in x]
         if durs:
             break
     return (sum(durs) / len(durs) / 1e3 if durs else None), len(durs)
@@ -336,9 +341,9 @@ def ms_or_not(x, spec='%.4f ms'):
 def phase1():
     import torch
     from mfrec_tpu_torch.ops import _cuda_build, bias_refit_kernel, \
-        cg_kernel, half_pass_kernel, half_pass_old_kernel, \
-        kmf_serial_kernel, probe_kernel, serial_kernel, topn_kernel, \
-        window_agg_kernel
+        cg_kernel, frozen_half_pass_kernel, half_pass_kernel, \
+        half_pass_old_kernel, kmf_serial_kernel, probe_kernel, \
+        serial_kernel, topn_kernel, window_agg_kernel
     log('phase 1: python %s, torch %s, CUDA %s' % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     nv = subprocess.run([_cuda_build.nvcc_path(), '--version'],
@@ -347,13 +352,13 @@ def phase1():
     log('card: %s' % card_line())
     t0 = time.perf_counter()
     k1 = tuple(half_pass_kernel.LIBRARIES.values())
-    names = ('topn',) + k1 + ('pcg', 'cg_bucket', 'window_agg',
-                              'half_pass_old', 'probe', 'serial_funk',
-                              'kmf_serial', 'bias_refit')
+    names = ('topn',) + k1 + ('frozen_half_pass', 'pcg', 'cg_bucket',
+                              'window_agg', 'half_pass_old', 'probe',
+                              'serial_funk', 'kmf_serial', 'bias_refit')
     _cuda_build.build(names)
-    for mod in (topn_kernel, cg_kernel, window_agg_kernel,
-                half_pass_old_kernel, probe_kernel, serial_kernel,
-                kmf_serial_kernel, bias_refit_kernel):
+    for mod in (topn_kernel, frozen_half_pass_kernel, cg_kernel,
+                window_agg_kernel, half_pass_old_kernel, probe_kernel,
+                serial_kernel, kmf_serial_kernel, bias_refit_kernel):
         mod._library()
     cg_kernel._bucket_library()
     for name in k1:
@@ -789,6 +794,133 @@ def k1_case(name, F_upd, F_fix, layout, axis, batches=None, T=128, mu=3.5,
     return rec
 
 
+def k1f_bound(seg, k, T):
+    '''The least time the card could take for a K1f launch over ``seg``
+    (f32 fixed rows): the larger of its f32 operations (each rating's
+    frozen dot once, 2 k, then about 9 a sweep: b_u's term, the base, the
+    clamp, the residual, eff * ff_col and its sum) over the FP32 peak and
+    the bytes it must move (the segment table, each fixed row once, each
+    updated row read once and b_u written) over the memory rate.  The
+    dots' gathers of fixed rows from L2 (4 k bytes a rating) count in
+    neither.'''
+    import torch
+    n = int(seg.ent_r.numel())
+    nb = int(seg.blk_row.numel())
+    ns = int(seg.seg_cnt.numel())
+    nfix = int(torch.unique(seg.ent_fix).numel())
+    ops = (2.0 * k + 9.0 * T) * n
+    nbytes = (12.0 * n + 12.0 * nb + 8.0 * ns + (4.0 * k + 4.0) * nb
+              + 4.0 * k * nfix + 8.0 * k)
+    return roofline_ms(ops, nbytes)
+
+
+def k1f_case(name, F_upd, F_fix, layout, batches=None, only_row=None, T=32,
+             mu=3.5, iters=0, plain_iters=1, device='cuda'):
+    '''K1f (FN's user half-pass: f32 fixed rows, every rate but b_u's
+    zero) against K1's plain version with the same rates over
+    ``batches`` of a user ``sorted_pass_layout`` (all by default; with
+    ``only_row``, that row's ratings alone), K1's tolerances, a second
+    launch bit-identical and every column but b_u's untouched.  With
+    ``iters``: K1f's time, K1's on the same inputs and rates (the
+    parent's path), K1f's plain version's (unless ``plain_iters`` is 0)
+    and K1f's bound.'''
+    import torch
+    from mfrec_tpu_torch.ops import frozen_half_pass_kernel as fk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass, \
+        half_pass_ref
+    dev = torch.device(device)
+    W = layout[-1]
+    arrs = list(layout[:-1])
+    if batches is not None:
+        arrs = [a[np.asarray(batches)] for a in arrs]
+    if only_row is not None:
+        arrs[3] = arrs[3] * (arrs[0] == only_row)
+    pl = sgd_mf.PassLayout(tuple(arrs) + (W,), 'user', dev, segments=True)
+    k = F_upd.shape[1]
+    lrv, regv = (torch.from_numpy(a).to(dev) for a in sgd_mf.column_rates(
+        k - 2, True, 0.15, 0.02, 0.02, 0.15, 0.15, 0.01, 0.01, True,
+        freeze_user_factors=True))
+    F0 = torch.from_numpy(F_upd).to(dev)
+    Ffix = torch.from_numpy(F_fix).to(dev)
+    args = (Ffix, pl.batches(), W, lrv, regv, mu)
+    seg = pl.segments
+    Fk, again, Fp = F0.clone(), F0.clone(), F0.clone()
+    sse_k = float(fk.frozen_half_pass(Fk, *args, k - 2, T, segments=seg))
+    sse_a = float(fk.frozen_half_pass(again, *args, k - 2, T, segments=seg))
+    sse_p = float(half_pass_ref(Fp, *args, T))
+    diff = (Fk - Fp).abs()
+    err = float(diff.max())
+    sse_err = abs(sse_k - sse_p) / abs(sse_p) if sse_p else abs(sse_k)
+    moving = torch.zeros(k, dtype=torch.bool, device=dev)
+    moving[k - 2] = True
+    ok = bool((diff <= K1_ATOL + K1_RTOL * Fp.abs()).all()) and \
+        sse_err <= K1_SSE_RTOL and bool(torch.isfinite(Fk).all()) and \
+        bool(torch.equal(again, Fk)) and sse_a == sse_k and \
+        bool(torch.equal(Fk[:, ~moving], F0[:, ~moving])) and \
+        float((Fk - F0).abs().max()) > 0
+    del again, Fp
+    n_long, _, n_ovf = fk.long_rows(seg, *fk.geometry(k)[:2]) \
+        if dev.type == 'cuda' else (None, None, None)
+    rec = {'case': name, 'k': k, 'T': T, 'W': W,
+           'batches': pl.nbr_batches, 'ratings': int(seg.ent_r.numel()),
+           'rows': int(seg.blk_row.numel()), 'long_rows': n_long,
+           'records_past_shared_memory': n_ovf, 'longest_row': seg.longest,
+           'ok': ok, 'max_abs_err': err, 'sse_rel_err': sse_err}
+    if iters:
+        rec['ms'] = timed_ms(lambda: fk.frozen_half_pass(
+            Fk, *args, k - 2, T, segments=seg), iters)
+        rec['k1_ms'] = timed_ms(lambda: half_pass(
+            Fk, *args, T, segments=seg), iters)
+        Ft = F0.clone()
+        rec['plain_ms'] = timed_ms(lambda: fk.frozen_half_pass_ref(
+            Ft, *args, k - 2, T), plain_iters) if plain_iters else None
+        rec['bound_ms'], rec['bound_by'] = k1f_bound(seg, k, T)
+    log('  %-34s ok=%s max_abs_err=%.3g sse_rel_err=%.3g (%d ratings, %d '
+        'rows, %s of them a block, %s records past shared memory)%s'
+        % (name, ok, err, sse_err, rec['ratings'], rec['rows'], n_long,
+           n_ovf, ' K1f %.3f ms, K1 with the same rates %.3f ms, plain '
+           '%s, bound %.3f ms (%s)' % (
+               rec['ms'], rec['k1_ms'], ms_or_not(rec['plain_ms'], '%.3f ms'),
+               rec['bound_ms'], rec['bound_by']) if iters else ''))
+    return rec
+
+
+# the fields of each K1f record that the kernels line keeps
+K1F_CASE_KEYS = ('case', 'k', 'T', 'W', 'batches', 'ratings', 'rows',
+                 'long_rows', 'records_past_shared_memory', 'ok',
+                 'max_abs_err', 'sse_rel_err', 'ms', 'k1_ms')
+
+
+def k1f_entry(k1_time, fn):
+    '''The kernels line's K1f entry from phase 2's K1f records (at k 102,
+    T 32 over the W=128 layout: the first 16 user batches, the heaviest
+    user, the whole half-pass; at phase 7's k 66, T 64 over the W=512
+    layout: the first 16 user batches, the heaviest user) and phase 7's
+    launches.'''
+    recs = k1_time.get('k1f', [])
+    if not recs:
+        return []
+    first, whole = recs[0], recs[2]
+    return [{
+        'name': 'frozen_half_pass (K1f, FN\'s user half-pass: the frozen '
+                'dot once, b_u swept)',
+        'route': 'cuda', 'source': 'mfrec_tpu_torch/csrc/frozen_half_pass.cu',
+        'replaces': 'mfrec_tpu/ops/fn.py:141-252 (user half-pass through '
+                    'mfrec_tpu/ops/pallas_half_pass.py:274)',
+        'launches': fn.get('k1f_launches'),
+        'max_abs_err': max(r['max_abs_err'] for r in recs),
+        'ms': first['ms'], 'plain_ms': first['plain_ms'],
+        'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
+        'library_ms': None,
+        'shape': 'first 16 batches of the ML-10M user half-pass: B=16384 '
+                 'W=128 k=102 T=32, f32 fixed rows',
+        'ms_half_pass_user': whole['ms'],
+        'k1_ms_half_pass_user': whole['k1_ms'],
+        'bound_ms_half_pass_user': whole['bound_ms'],
+        'cases': [{x: r.get(x) for x in K1F_CASE_KEYS} for r in recs]}]
+
+
 def k1_kernel_ms(F_upd, F_fix, layout, axis, iters=3, only_row=None, T=128,
                  mu=3.5, device='cuda', ff32=False, **opts):
     '''Device time of one K1 launch over a whole layout (or over
@@ -905,6 +1037,39 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
     recs.append(k1_case('svdpp k=102 hot item %d chain (cluster, T=%d)'
                         % (hot, k102['T']), Qw, Pw, lay['item'], 'item',
                         batches=hot_b, **k102))
+    # K1f, FN's user half-pass at its width (k = 102, f32 fixed, T = 32):
+    # the first user batches, the heaviest user's chain (a block, records
+    # past shared memory) and the whole half-pass against K1's plain
+    # version, timed beside K1 with the same rates
+    def heaviest(L):
+        ub, mb = L[0], L[3]
+        row = int(np.bincount(ub[mb > 0]).argmax())
+        return row, np.flatnonzero(((ub == row) & (mb > 0)).any(1))
+
+    heavy, heavy_b = heaviest(lay['user'])
+    k1f_recs = [
+        k1f_case('k1f k=102 first%d user (T=32)' % nb, Pw, Qw, lay['user'],
+                 batches=range(nb), iters=5, plain_iters=2, device=device),
+        k1f_case('k1f k=102 heaviest user %d (T=32)' % heavy, Pw, Qw,
+                 lay['user'], batches=heavy_b, only_row=heavy,
+                 device=device),
+        k1f_case('k1f k=102 whole user half-pass (T=32)', Pw, Qw,
+                 lay['user'], iters=5, plain_iters=0, device=device)]
+    # and at phase 7's shape (rank 64: k = 66, KJ = 3; T = 64; the W=512
+    # user layout FN trains on): the first user batches, timed beside K1,
+    # and the heaviest user's chain
+    lay512 = stream_layout(U, I, nnz, 'user', 512, B)
+    P66, Q66 = _aug_factors(U, I, 64, 512, seed=5)
+    heavy, heavy_b = heaviest(lay512)
+    nb512 = min(16, lay512[0].shape[0])
+    k1f_recs += [
+        k1f_case('k1f k=66 W=512 first%d user (T=64)' % nb512, P66, Q66,
+                 lay512, batches=range(nb512), T=64, iters=5,
+                 plain_iters=0, device=device),
+        k1f_case('k1f k=66 W=512 heaviest user %d (T=64)' % heavy, P66,
+                 Q66, lay512, batches=heavy_b, only_row=heavy, T=64,
+                 device=device)]
+    del P66, Q66
     pairs = [(a, _boundary_pair(lay[a])) for a in ('user', 'item')]
     axis, b = next((a, b) for a, b in pairs + [(None, None)]
                    if a is None or b is not None)
@@ -968,9 +1133,10 @@ def phase2_half_pass(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], T=128,
             log('  time %-26s kernel %.3f ms, plain %.3f ms, bound %.3f ms '
                 '(%s)  [%s]' % (r['case'], r['ms'], r['plain_ms'],
                                 r['bound_ms'], r['bound_by'], card))
-    bad = [r['case'] for r in recs if not r['ok']]
+    timing['k1f'] = k1f_recs
+    bad = [r['case'] for r in recs + k1f_recs if not r['ok']]
     if bad:
-        raise SystemExit('phase 2 (K1) failed: %s' % bad)
+        raise SystemExit('phase 2 (K1, K1f) failed: %s' % bad)
     return recs, timing
 
 
@@ -2450,11 +2616,37 @@ def pcg_drift(M, b, x0, steps=(3, 6, 10, 20), sample=512):
 
 def device_busy_ms(prof):
     '''The device's busy time in a torch.profiler run, in ms: the union of
-    its kernels' and copies' intervals, so that work overlapping on two
-    streams counts once (a sum of kernel times can exceed the wall
-    time).'''
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+    its operations' intervals (``trace_device_ops``), so that work
+    overlapping on two streams counts once (a sum of kernel times can
+    exceed the wall time).'''
+    return union_ms([(a, b) for _, a, b in trace_device_ops(prof)])
+
+
+def trace_device_ops(prof):
+    '''(name, start us, end us) of every kernel, copy and memset of a
+    torch.profiler run, read from its chrome trace as
+    ``bench_torch/lib/trace.py`` reads it: every device time this script
+    reports comes from here, since the profiler's events (``events()``,
+    ``key_averages()``) leave out the kernels launched through ctypes
+    (K1's, K1f's).'''
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix='.json')
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    finally:
+        os.unlink(path)
+    return [(e.get('name', ''), float(e['ts']),
+             float(e['ts']) + float(e.get('dur', 0.0))) for e in events
+            if e.get('ph') == 'X'
+            and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+
+
+def union_ms(intervals):
+    '''The length of the union of (start, end) intervals in us, in ms.'''
+    iv = sorted(intervals)
     busy, end = 0.0, None
     for a, b in iv:
         if end is None or a > end:
@@ -2476,15 +2668,12 @@ def idle_share(busy_ms, epoch_ms):
 
 
 def device_kernels(prof):
-    '''Per device kernel name in a torch.profiler run: (launches, ms),
-    longest first.'''
+    '''Per device operation name in a torch.profiler run
+    (``trace_device_ops``): (launches, ms), longest first.'''
     out = {}
-    for e in prof.key_averages():
-        if str(getattr(e, 'device_type', '')).endswith('CUDA'):
-            ms = getattr(e, 'self_device_time_total',
-                         getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
-            n, t = out.get(e.key, (0, 0.0))
-            out[e.key] = (n + e.count, t + ms)
+    for name, a, b in trace_device_ops(prof):
+        n, t = out.get(name, (0, 0.0))
+        out[name] = (n + 1, t + (b - a) / 1e3)
     return dict(sorted(out.items(), key=lambda x: -x[1][1]))
 
 
@@ -2795,6 +2984,8 @@ def k4_launches():
 
 def zero_launch_counts():
     from mfrec_tpu_torch.ops.bias_refit_kernel import bias_refit
+    from mfrec_tpu_torch.ops.frozen_half_pass_kernel import \
+        frozen_half_pass
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.kmf_serial_kernel import kmf_serial_converge
     from mfrec_tpu_torch.ops.serial_kernel import serial_converge
@@ -2805,7 +2996,8 @@ def zero_launch_counts():
                                                        scan_aggregate,
                                                        step_aggregate,
                                                        window_aggregate)
-    for fn in (half_pass, topn_scores_kernel, scan_aggregate,
+    for fn in (half_pass, frozen_half_pass, topn_scores_kernel,
+               scan_aggregate,
                gather_aggregate, error_aggregate, profile_aggregate,
                window_aggregate, step_aggregate, serial_converge,
                kmf_serial_converge, bias_refit):
@@ -2848,11 +3040,23 @@ K4_KERNELS = ('window_index_kernel', 'window_sum_kernel', 'scan_agg_kernel',
               'gather_agg_kernel', 'step_agg_kernel')
 
 
+def kernel_group(name):
+    '''Which of K1f, K1 and K4 a device kernel's name belongs to, or
+    'other'.'''
+    if 'frozen_half_pass_rows' in name:
+        return 'k1f'
+    if 'half_pass_rows' in name or 'half_pass_cluster_rows' in name:
+        return 'k1'
+    return 'k4' if any(n in name for n in K4_KERNELS) else 'other'
+
+
 def tier_split(epoch, state, args, device):
     '''One epoch of a tier on the card, split by phase: the CUDA-event
     time from one phase's end to the next's (the epoch's ``on_phase``
     hook marks them) beside the host time to enqueue it, then one more
-    epoch under torch.profiler for the kernels' busy time by kernel (K1
+    epoch under torch.profiler for the kernels' busy time by kernel, read
+    from its chrome trace (``trace_device_ops``; ``kernel_group``: K1f
+    ``frozen_half_pass_rows``, K1
     ``half_pass_rows``/``half_pass_cluster_rows``, K4's
     ``window_index_kernel``/``window_sum_kernel``/``scan_agg_kernel``/
     ``gather_agg_kernel``/``step_agg_kernel``, the rest) and the device
@@ -2886,18 +3090,16 @@ def tier_split(epoch, state, args, device):
         epoch(*state, *args)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
-    busy = {'k1': 0.0, 'k4': 0.0, 'other': 0.0}
-    for e in prof.key_averages():
-        if not str(getattr(e, 'device_type', '')).endswith('CUDA'):
-            continue
-        ms = getattr(e, 'self_device_time_total',
-                     getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
-        key = 'k1' if ('half_pass_rows' in e.key
-                       or 'half_pass_cluster_rows' in e.key) else 'k4' if \
-            any(n in e.key for n in K4_KERNELS) else 'other'
-        busy[key] += ms
-    total = device_busy_ms(prof)
-    return {'phases': phases,
+    busy = {'k1': 0.0, 'k1f': 0.0, 'k4': 0.0, 'other': 0.0}
+    names = {}
+    ops = trace_device_ops(prof)
+    for name, a, b in ops:
+        ms = (b - a) / 1e3
+        busy[kernel_group(name)] += ms
+        names[name] = names.get(name, 0.0) + ms
+    total = union_ms([(a, b) for _, a, b in ops])
+    return {'phases': phases, 'kernels_ms': dict(sorted(
+        names.items(), key=lambda x: -x[1])[:8]),
             'epoch_event_ms': sum(p['device_ms'] for p in phases.values()),
             'epoch_wall_ms': wall, 'busy_ms': busy, 'busy_total_ms': total,
             'busy_sum_ms': sum(busy.values()),
@@ -2915,15 +3117,18 @@ def log_split(split, card):
     b = split['busy_ms']
     log('  one epoch: %.3f ms by CUDA events, %.3f ms on the host clock; '
         'device busy %.3f ms (the union of kernel intervals; kernel time '
-        'K1 %.3f, K4 %.3f, other %.3f, sum %.3f) by torch.profiler: device '
-        'idle %s of the event time (%s of the host clock)  [%s]'
+        'K1 %.3f, K1f %.3f, K4 %.3f, other %.3f, sum %.3f) by '
+        'torch.profiler: device idle %s of the event time (%s of the host '
+        'clock)  [%s]'
         % (split['epoch_event_ms'], split['epoch_wall_ms'],
-           split['busy_total_ms'], b['k1'], b['k4'], b['other'],
+           split['busy_total_ms'], b['k1'], b['k1f'], b['k4'], b['other'],
            split['busy_sum_ms'],
            'not measured' if split['idle'] is None
            else '%.1f %%' % (100 * split['idle']),
            'not measured' if split['idle_host_clock'] is None
            else '%.1f %%' % (100 * split['idle_host_clock']), card))
+    log('  the epoch\'s longest kernels: %s' % '; '.join(
+        '%s %.3f ms' % (n[:60], ms) for n, ms in split['kernels_ms'].items()))
 
 
 def reduced_model(cls, params, device, reduced=REDUCED):
@@ -2942,6 +3147,8 @@ def tier_card_vs_cpu(kind, params, reduced=REDUCED):
     with the launches the CUDA epoch made.'''
     from mfrec_tpu_torch.models.fn import FNRecommender
     from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops.frozen_half_pass_kernel import \
+        frozen_half_pass
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     cls = GDRecommender if kind == 'svdpp' else FNRecommender
     one = {'min_epochs': 1, 'max_epochs': 1} if kind == 'svdpp' \
@@ -2962,11 +3169,13 @@ def tier_card_vs_cpu(kind, params, reduced=REDUCED):
         else:
             epoch, state, args = m._fn_epoch(
                 m._upload(m._init_or_resume(False)), use_kernel=True)
-        before = (half_pass.launches, k4_launches())
+        before = (half_pass.launches, frozen_half_pass.launches,
+                  k4_launches())
         *state, rmse = epoch(*state, *args)
         out[d] = ([x.cpu() for x in state], float(rmse),
                   (half_pass.launches - before[0],
-                   k4_launches() - before[1]))
+                   frozen_half_pass.launches - before[1],
+                   k4_launches() - before[2]))
     errs = [float((a - b).abs().max()) for a, b in zip(out['cuda'][0],
                                                        out['cpu'][0])]
     ok = all(bool((a - b).abs().le(K1_ATOL + K1_RTOL * b.abs()).all())
@@ -2974,7 +3183,7 @@ def tier_card_vs_cpu(kind, params, reduced=REDUCED):
     ok = ok and abs(out['cuda'][1] - out['cpu'][1]) <= \
         1e-3 * abs(out['cpu'][1])
     log('  one %s epoch at %d x %d: card vs CPU tensors ok=%s, max abs '
-        'err %s, rmse %.5f vs %.5f, K1 %d and K4 %d launches'
+        'err %s, rmse %.5f vs %.5f, K1 %d, K1f %d and K4 %d launches'
         % (kind, reduced[0], reduced[1], ok,
            ' '.join('%.3g' % e for e in errs), out['cuda'][1], out['cpu'][1],
            *out['cuda'][2]))
@@ -3032,6 +3241,8 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     counts, an epoch split by phase, the card against CPU tensors at a
     reduced shape, and the agg-only tier.'''
     from mfrec_tpu_torch.models.gd import GDRecommender
+    from mfrec_tpu_torch.ops.frozen_half_pass_kernel import \
+        frozen_half_pass
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
                                                        step_aggregate,
@@ -3055,6 +3266,7 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     res.update(k1_launches=half_pass.launches,
+               k1f_launches=frozen_half_pass.launches,
                b1_launches=bias_refit.launches,
                k4_scan_launches=scan_aggregate.launches,
                k4g_launches=k4g_launches(),
@@ -3080,7 +3292,8 @@ def phase6(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 def check_tier_run(name, res, device, q_batches, card, tier):
     '''The gates of phases 6 and 7: every epoch's train RMSE finite, the
     last below the bias-only floor, and (on the card) K1 and K4 launched
-    as the 21 timed epochs in 6 calls need: 2 K1 launches per epoch, and 3
+    as the 21 timed epochs in 6 calls need: 2 K1 launches per epoch (FN:
+    one of K1 and one of K1f, its user half-pass), and 3
     of K4 -- 2 whole-phase aggregations through K4g's gathered entries
     (``tier`` 'svdpp': the sum and error modes; 'fn': the profile and
     error modes, and one profile launch a call for the served profiles)
@@ -3091,11 +3304,12 @@ def check_tier_run(name, res, device, q_batches, card, tier):
         'run): %s' % (res['warmup_s'], res['warmup_rmse'],
                       ' '.join('%.4f' % x for x in res['rmse'])))
     log('  epoch %.4f s (median of 3), final rmse %.4f vs floor %.4f; K1 '
-        'launches %d, K4 launches %d (%d whole-phase + %d gathered-phase '
-        '+ %d item-step + %d per-batch; %d item batches per epoch): %.2f '
-        'per epoch over 21 epochs  [%s]'
+        'launches %d, K1f launches %d, K4 launches %d (%d whole-phase + %d '
+        'gathered-phase + %d item-step + %d per-batch; %d item batches per '
+        'epoch): %.2f per epoch over 21 epochs  [%s]'
         % (res['epoch_s'], res['rmse'][-1], res['floor'], res['k1_launches'],
-           res['k4_launches'], res['k4_scan_launches'], res['k4g_launches'],
+           res['k1f_launches'], res['k4_launches'], res['k4_scan_launches'],
+           res['k4g_launches'],
            res['k4_step_launches'], res['k4_call_launches'], q_batches,
            res['k4_launches'] / 21.0, card))
     if not all(np.isfinite(hist)):
@@ -3103,11 +3317,13 @@ def check_tier_run(name, res, device, q_batches, card, tier):
     if not res['rmse'][-1] < res['floor']:
         raise SystemExit('%s: final RMSE %.4f does not beat the bias-only '
                          'floor %.4f' % (name, res['rmse'][-1], res['floor']))
-    want = (42, 0, 42, 21, 0) if tier == 'svdpp' else (42, 0, 48, 21, 0)
-    got = (res['k1_launches'], res['k4_scan_launches'], res['k4g_launches'],
-           res['k4_step_launches'], res['k4_call_launches'])
+    want = (42, 0, 0, 42, 21, 0) if tier == 'svdpp' else \
+        (21, 21, 0, 48, 21, 0)
+    got = (res['k1_launches'], res['k1f_launches'], res['k4_scan_launches'],
+           res['k4g_launches'], res['k4_step_launches'],
+           res['k4_call_launches'])
     if device == 'cuda' and got != want:
-        raise SystemExit('%s: K1/K4 launches %s, expected %s'
+        raise SystemExit('%s: K1/K1f/K4 launches %s, expected %s'
                          % (name, got, want))
 
 
@@ -3117,6 +3333,8 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
     at bench.py's operating point, timed and gated as phase 6, then
     retrieval from the materialized profiles through K3 and one fold-in.'''
     from mfrec_tpu_torch.models.fn import FNRecommender
+    from mfrec_tpu_torch.ops.frozen_half_pass_kernel import \
+        frozen_half_pass
     from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
     from mfrec_tpu_torch.ops.topn_kernel import topn_scores_kernel
     from mfrec_tpu_torch.ops.window_agg_kernel import (scan_aggregate,
@@ -3139,6 +3357,7 @@ def phase7(U=ML10M['U'], I=ML10M['I'], nnz=ML10M['nnz'], device='cuda',
 
     res = epochs_timed(train, lambda: m.rmse_history, card, device)
     res.update(k1_launches=half_pass.launches,
+               k1f_launches=frozen_half_pass.launches,
                k4_scan_launches=scan_aggregate.launches,
                k4g_launches=k4g_launches(),
                k4_call_launches=window_aggregate.launches,
@@ -5258,6 +5477,45 @@ def ab_k1(lay, hot):
     return out
 
 
+def ab_k1f(lay):
+    '''FN's user half-pass at its width (k = 102, f32 fixed rows, T = 32,
+    every rate but b_u's zero) over the W=128 ML-10M user layout in this
+    process's checkout: through K1 (the parent's path; ms, CUDA events)
+    and, where the checkout has K1f, through K1f: its time and bound on
+    the whole half-pass and on the first 16 batches, its plain version's
+    time there, and its agreement with K1's plain version (``k1f_case``).'''
+    import importlib.util
+    import torch
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.ops.half_pass_kernel import half_pass
+    Pw, Qw = _aug_factors(ML10M['U'], ML10M['I'], 100, 128, seed=1)
+    dev = torch.device('cuda')
+    pl = sgd_mf.PassLayout(lay['user'], 'user', dev, segments=True)
+    lrv, regv = (torch.from_numpy(a).to(dev) for a in sgd_mf.column_rates(
+        100, True, 0.15, 0.02, 0.02, 0.15, 0.15, 0.01, 0.01, True,
+        freeze_user_factors=True))
+    F = torch.from_numpy(Pw).to(dev)
+    G = torch.from_numpy(Qw).to(dev)
+    out = {'k1_ms': timed_ms(lambda: half_pass(
+        F, G, pl.batches(), 128, lrv, regv, 3.5, 32, segments=pl.segments),
+        5)}
+    del F, G, pl
+    if importlib.util.find_spec(
+            'mfrec_tpu_torch.ops.frozen_half_pass_kernel') is None:
+        return out
+    first = k1f_case('ab k1f first 16 user batches', Pw, Qw, lay['user'],
+                     batches=range(16), iters=5, plain_iters=2)
+    whole = k1f_case('ab k1f whole user half-pass', Pw, Qw, lay['user'],
+                     iters=5, plain_iters=0)
+    out.update(k1f_ms=whole['ms'], k1_ms_same_process=whole['k1_ms'],
+               bound_ms=whole['bound_ms'], bound_by=whole['bound_by'],
+               k1f_ms_first16=first['ms'], plain_ms_first16=first['plain_ms'],
+               bound_ms_first16=first['bound_ms'],
+               ok=first['ok'] and whole['ok'],
+               max_abs_err=max(first['max_abs_err'], whole['max_abs_err']))
+    return out
+
+
 def ab_k1_rows(lay, hot):
     '''The item half-pass and the hot chain (ms) with K1's cluster rows
     at ``CLUSTER_ROW`` 4,096, 16,384 and none.'''
@@ -5675,7 +5933,7 @@ def ab_s2(reps=3):
     return out
 
 
-AB_MODES = ('k1', 'k4', 'k1-rows', 'als', 'k3', 's1', 's2')
+AB_MODES = ('k1', 'k1f', 'k4', 'k1-rows', 'als', 'k3', 's1', 's2')
 
 
 def ab_main(mode, checkouts, child):
@@ -5707,9 +5965,13 @@ def ab_main(mode, checkouts, child):
         else:
             _cuda_build.build(tuple(getattr(hk, 'LIBRARIES',
                                             {0: 'half_pass'}).values())
-                              + ('window_agg',))
+                              + ('window_agg',) + tuple(
+                x for x in ('frozen_half_pass',) if os.path.exists(
+                    os.path.join(checkout, 'mfrec_tpu_torch', 'csrc',
+                                 x + '.cu'))))
             lay, hot = ab_layouts(cache)
             out = {'k1': lambda: ab_k1(lay, hot),
+                   'k1f': lambda: ab_k1f(lay),
                    'k1-rows': lambda: ab_k1_rows(lay, hot),
                    'k4': lambda: ab_k4(lay)}[mode]()
         out.update(checkout=checkout, card=card_line())
@@ -5800,7 +6062,7 @@ def main(argv=None):
             'launches_kmf': pk.get('launches', {}).get('k1'),
             'max_abs_err_kmf': max((r['max_abs_err'] for r in
                                     pk.get('k1', [])), default=None),
-            'epoch_s_kmf': pk.get('epoch_s')}]
+            'epoch_s_kmf': pk.get('epoch_s')}] + k1f_entry(k1_time, fn)
             + k2_entry(k2_recs, als) + k4_entry(k4, svdpp, fn)
             + b1_entry(k4, train, svdpp)
             + probe_entries(p8) + serial_entry(s1, p9)

@@ -26,9 +26,13 @@ f32.  On, the half-pass goes through K1's wrapper
 (``ops.half_pass_kernel.half_pass``): the CUDA kernel for CUDA tensors,
 its plain version for CPU tensors; with ``ff_dtype='bfloat16'`` the fixed
 side is cast to bf16 once per half-pass first (``:744-751``), else it
-stays f32.  ``use_agg_kernel`` is the JAX ``use_pallas_agg``: the plain
-sweep with K4 (``ops.window_agg_kernel.window_aggregate``) summing the
-gradients and counts in place of ``index_add_``.
+stays f32.  A user half-pass with ``freeze_user_factors`` (FN's, which
+trains b_u alone) goes through K1f's wrapper instead
+(``ops.frozen_half_pass_kernel.frozen_half_pass``): the same arithmetic,
+each rating's frozen part of the dot formed once.  ``use_agg_kernel`` is
+the JAX ``use_pallas_agg``: the plain sweep with K4
+(``ops.window_agg_kernel.window_aggregate``) summing the gradients and
+counts in place of ``index_add_``.
 
 The aggregation phases and the SVD++ item step go through K4 the same
 way: on a layout with K1's segment table (a CUDA model's) a whole phase
@@ -50,8 +54,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mfrec_tpu_torch.ops import half_pass_kernel, serial_kernel, \
-    window_agg_kernel
+from mfrec_tpu_torch.ops import frozen_half_pass_kernel, half_pass_kernel, \
+    serial_kernel, window_agg_kernel
 from mfrec_tpu_torch.utils import profiling
 
 
@@ -260,7 +264,10 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
     ``link``: 'identity' or 'logistic' (pred = lo + sigmoid(s)*(hi-lo),
     the gradient picks up sigmoid'(s)*(hi-lo)).  ``K_u``/``K_i``:
     per-side factor regularization (default both K).
-    ``freeze_user_factors``: the user half-pass trains only b_u.
+    ``freeze_user_factors``: the user half-pass trains only b_u (with
+    ``use_kernel``, through K1f, recorded as the span
+    ``fn.user_half_pass``; K1f takes FN's case alone: the identity link,
+    learned biases, f32 fixed rows).
     ``ff_dtype``: None (f32) or 'bfloat16', the fixed side's type on the
     kernel path.  ``use_agg_kernel``: the agg-only tier (identity link
     only, as in the JAX package).'''
@@ -273,6 +280,12 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
     if ff_dtype not in (None, 'bfloat16'):
         raise ValueError("ff_dtype must be None (f32) or 'bfloat16', got %r"
                          % (ff_dtype,))
+    if freeze_user_factors and use_kernel and (
+            link != 'identity' or bias_mode != 'learned' or ff_dtype):
+        raise ValueError('freeze_user_factors on the kernel path takes the '
+                         'identity link, learned biases and f32 fixed rows '
+                         '(K1f), got link=%r, bias_mode=%r, ff_dtype=%r'
+                         % (link, bias_mode, ff_dtype))
     learned = bias_mode == 'learned'
     bias_none = bias_mode == 'none'
     K_u = K if K_u is None else K_u
@@ -344,10 +357,17 @@ def make_alternating_epoch(W_user, W_item, lr, K, lr_bu=0.0, lr_bi=0.0,
         if use_kernel:
             if ff_dtype == 'bfloat16':     # cast once per half-pass
                 F_fix = F_fix.to(torch.bfloat16)
-            return half_pass_kernel.half_pass(
-                F_upd, F_fix, layout.batches(), W, lrv,
-                regv, float(mu), T, clamp_pred, lo_r, hi_r, row_mean,
-                bias_none, link, segments=layout.segments)
+            args = (F_upd, F_fix, layout.batches(), W, lrv, regv, float(mu))
+            opts = (clamp_pred, lo_r, hi_r, row_mean)
+            if freeze_user_factors and upd_is_user:
+                # only b_u moves (FN's user side): K1f forms each
+                # rating's dot once and sweeps b_u alone
+                with profiling.span('fn.user_half_pass'):
+                    return frozen_half_pass_kernel.frozen_half_pass(
+                        *args, F_upd.shape[1] - 2, T, *opts,
+                        segments=layout.segments)
+            return half_pass_kernel.half_pass(*args, T, *opts, bias_none,
+                                              link, segments=layout.segments)
         fix, r, m, kl, _ = layout.batches()
         sse = torch.zeros((), dtype=torch.float32, device=F_upd.device)
         for b, lo in enumerate(layout.lo_host.tolist()):

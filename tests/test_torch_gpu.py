@@ -1004,9 +1004,11 @@ def _tier_inputs(dev, W=64, k=16, U=500, I=300):
 @pytest.mark.parametrize('tier', ['implicit', 'fn'])
 def test_cuda_tier_epochs_match_cpu(cuda, tier):
     '''Two SVD++ or FN epochs with use_kernel=True on CUDA tensors (K1,
-    K4's phase launches and the item step) against the same epochs on CPU
-    tensors (their plain versions: the per-batch item step).'''
+    FN's user side through K1f, K4's phase launches and the item step)
+    against the same epochs on CPU tensors (their plain versions: the
+    per-batch item step).'''
     from mfrec_tpu_torch.ops import fn as fn_ops
+    from mfrec_tpu_torch.ops import frozen_half_pass_kernel as fk
     from mfrec_tpu_torch.ops import half_pass_kernel as hk
     from mfrec_tpu_torch.ops import sgd_mf
     from mfrec_tpu_torch.ops import window_agg_kernel as wak
@@ -1022,19 +1024,21 @@ def test_cuda_tier_epochs_match_cpu(cuda, tier):
                 W, W, 0.15, 0.15, 0.15, 0.15, 0.02, 0.007, 0.007,
                 inner_steps=8, use_kernel=True)
             state = (Pa, Qa, X, Y)
-        fns = (hk.half_pass, wak.scan_aggregate, wak.gather_aggregate,
-               wak.error_aggregate, wak.window_aggregate, wak.step_aggregate,
+        fns = (hk.half_pass, fk.frozen_half_pass, wak.scan_aggregate,
+               wak.gather_aggregate, wak.error_aggregate,
+               wak.window_aggregate, wak.step_aggregate,
                wak.profile_aggregate)
         counts = [f.launches for f in fns]
         for _ in range(2):
             *state, rmse = ep(*state, mu, pl_, ql_, nrm)
         got = tuple(f.launches - c for f, c in zip(fns, counts))
+        # FN's user half-pass through K1f, its item half-pass through K1;
         # the item step: one launch per epoch, none per batch; the user
         # phases through K4g's gathered entries (SVD++'s sum and error
         # modes, FN's profile and error modes), none through scan_aggregate
-        want = (4, 0, 2, 2, 0, 2, 0) if tier == 'implicit' else \
-            (4, 0, 0, 2, 0, 2, 2)
-        assert got == (want if dev == 'cuda' else (0,) * 7)
+        want = (4, 0, 0, 2, 2, 0, 2, 0) if tier == 'implicit' else \
+            (2, 2, 0, 0, 2, 0, 2, 2)
+        assert got == (want if dev == 'cuda' else (0,) * 8)
         out[dev] = [x.cpu() for x in state] + [float(rmse)]
     for a, b in zip(out['cuda'][:-1], out['cpu'][:-1]):
         torch.testing.assert_close(a, b, **K1_TOL)
@@ -1300,6 +1304,118 @@ def _cluster_case(cuda, k, delta, seed, f32_fix=False, **opts):
     assert abs(float(sse_k) - float(sse_p)) <= 1e-3 * float(sse_p)
     assert torch.equal(Fk, Fa) and float(sse_k) == float(sse_a)
     assert float((Fk - F0).abs().max()) > 0
+
+
+def _k1f_batches(kind, warp_cap, block_cap, n_fix, seed):
+    '''K1f's row shapes: ``'random'``, five batches of random windows
+    (W = 64, masks with holes); ``'caps'``, one batch whose rows hold
+    warp_cap and warp_cap + 1, block_cap and block_cap + 1 ratings beside
+    short rows (W = 8), each side of where a row leaves a warp and where
+    its records leave shared memory; ``'heavy'``, row 0 with 8,200 of
+    each of two batches' ratings (16,400, at least CLUSTER_ROW: the
+    table's leading cluster row, most of its records past shared memory)
+    beside short rows (W = 16).'''
+    rng = np.random.default_rng(seed)
+    if kind == 'random':
+        return _k1_batches(5, 2048, 64, 400, n_fix, seed), 64
+    if kind == 'caps':
+        lens = [[warp_cap, warp_cap + 1, block_cap, block_cap + 1]
+                + [30] * 4]
+        W = 8
+    else:
+        lens = [[8200] + [50] * 15] * 2
+        W = 16
+    B = max(sum(x) for x in lens) + 16
+    nb = len(lens)
+    kl = np.zeros((nb, B), np.int32)
+    m = np.zeros((nb, B), np.float32)
+    for b, row_lens in enumerate(lens):
+        ids = np.repeat(np.arange(len(row_lens)), row_lens)
+        kl[b, :ids.size] = ids
+        m[b, :ids.size] = 1.0
+    r = rng.uniform(1, 5, (nb, B)).astype(np.float32)
+    fix = rng.integers(0, n_fix, (nb, B)).astype(np.int32)
+    return (fix, r, m, kl, np.zeros(nb, np.int32)), W
+
+
+@pytest.mark.parametrize('kind', ['random', 'caps', 'heavy'])
+@pytest.mark.parametrize('k,T,opts', [
+    (102, 32, {}), (102, 8, {}), (66, 32, {}), (66, 8, {}),
+    (102, 8, {'row_mean': False}), (66, 64, {}), (130, 8, {}),
+    (102, 8, {'clamp_pred': False})])
+def test_frozen_half_pass_matches_plain(cuda, kind, k, T, opts):
+    '''K1f (FN's user half-pass: f32 fixed rows, every rate but b_u's
+    zero) against K1's plain version with FN's rates and against its
+    own, K1's tolerances; a second launch bit-identical; every column but
+    b_u's untouched; one K1f launch and no K1 launch; ``k1f.entries`` the
+    table's entries while recording.'''
+    from mfrec_tpu_torch.ops import frozen_half_pass_kernel as fk
+    from mfrec_tpu_torch.ops import half_pass_kernel as hk
+    from mfrec_tpu_torch.ops import sgd_mf
+    from mfrec_tpu_torch.utils import profiling
+    warp_cap, block_cap, _ = fk.geometry(k)
+    n_fix = 700
+    batches, W = _k1f_batches(kind, warp_cap, block_cap, n_fix,
+                              seed=k + T + len(opts))
+    seg = hk.build_segments(*batches, W, cuda)
+    n_long, _, n_ovf = fk.long_rows(seg, warp_cap, block_cap)
+    if kind == 'caps':
+        assert (n_long, n_ovf) == (3, 1)
+    elif kind == 'heavy':
+        assert seg.n_cluster == 1 and int(seg.blk_len[0]) == 16400
+        assert n_ovf == 16400 - block_cap
+    rng = np.random.default_rng(k)
+    n_upd = int(batches[4].max()) + W
+    P = rng.normal(0, 0.1, (n_upd, k - 2)).astype(np.float32)
+    Q = rng.normal(0, 0.1, (n_fix, k - 2)).astype(np.float32)
+    bu = rng.normal(0, 0.3, n_upd).astype(np.float32)
+    bi = rng.normal(0, 0.3, n_fix).astype(np.float32)
+    F0, Ffix = (torch.from_numpy(a).to(cuda)
+                for a in sgd_mf.augment_factors(P, Q, bu, bi))
+    lrv, regv = (torch.from_numpy(a).to(cuda) for a in sgd_mf.column_rates(
+        k - 2, True, 0.15, 0.02, 0.02,
+        0.01 if opts.get('row_mean') is False else 0.15, 0.15, 0.01, 0.01,
+        True, freeze_user_factors=True))
+    mu = 3.4
+    tb = tuple(torch.from_numpy(a).to(cuda) for a in batches)
+    Fk, Fa, Fp, Ft = F0.clone(), F0.clone(), F0.clone(), F0.clone()
+    before = (fk.frozen_half_pass.launches, hk.half_pass.launches)
+    profiling.collect()
+    profiling.enable()
+    try:
+        sse_k = fk.frozen_half_pass(Fk, Ffix, tb, W, lrv, regv, mu, k - 2, T,
+                                    segments=seg, **opts)
+        torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+        counters = profiling.collect().counters
+    assert (fk.frozen_half_pass.launches - before[0],
+            hk.half_pass.launches - before[1]) == (1, 0)
+    assert counters == {'k1f.entries': int(seg.ent_r.numel())}
+    sse_a = fk.frozen_half_pass(Fa, Ffix, tb, W, lrv, regv, mu, k - 2, T,
+                                segments=seg, **opts)
+    sse_p = hk.half_pass_ref(Fp, Ffix, tb, W, lrv, regv, mu, T, **opts)
+    sse_t = fk.frozen_half_pass_ref(Ft, Ffix, tb, W, lrv, regv, mu, k - 2,
+                                    T, **opts)
+    for want, sse_w in ((Fp, sse_p), (Ft, sse_t)):
+        torch.testing.assert_close(Fk, want, **K1_TOL)
+        assert abs(float(sse_k) - float(sse_w)) <= 1e-3 * float(sse_w)
+    assert torch.equal(Fk, Fa) and float(sse_k) == float(sse_a)
+    moving = torch.zeros(k, dtype=torch.bool, device=cuda)
+    moving[k - 2] = True
+    assert torch.equal(Fk[:, ~moving], F0[:, ~moving])
+    assert float((Fk[:, k - 2] - F0[:, k - 2]).abs().max()) > 0
+
+
+@pytest.mark.parametrize('k', [6, 66, 102, 128, 130, 256])
+def test_frozen_half_pass_geometry(cuda, k):
+    '''K1f's shared memory and registers leave four blocks an SM at up to
+    four column slots (k <= 128), at least two beyond; a long row's block
+    keeps eight warps' records.'''
+    from mfrec_tpu_torch.ops import frozen_half_pass_kernel as fk
+    warp_cap, block_cap, blocks = fk.geometry(k)
+    assert block_cap == 8 * warp_cap and warp_cap >= 256
+    assert blocks == 4 if k <= 128 else blocks >= 2
 
 
 # the item step against its plain version: within K4's atol plus 1 % of
